@@ -5,8 +5,9 @@ Run from the root of the repository on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It needs one CUDA device and the CUDA toolkit (``nvcc``); it builds the
-port's kernels from ``ur_mvo_tpu_torch/csrc/`` into
+It needs one CUDA device, the CUDA toolkit (``nvcc``) and ``ninja``; it
+builds the port's kernels from ``ur_mvo_tpu_torch/csrc/`` with
+``torch.utils.cpp_extension.load`` into
 ``build/ur_mvo_tpu_torch_ext/`` and runs at the validated mono operating
 point: 240x320, the shipped ``superpoint_scratch_v3`` / ``superglue_v3scene``
 weights, capacity 1024, 1000 keypoints, threshold 1e-4, 18 attention
@@ -15,7 +16,10 @@ layers, bf16 compute. Phases, each printing one JSON line:
 1. device: the card's name, count and power limit;
 2. build: time to compile the kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shapes, in bf16 and float32 (max error beside its bound); its
+   main path's shapes, in bf16 and float32 (max error beside its bound; for
+   attention also the errors of a swapped mask and of a dropped key tile,
+   which must exceed it); Sinkhorn's time also beside the time the card
+   takes to read its matrix once per half-sweep from L2; its
    device time per launch from ``torch.profiler`` beside the plain version's
    and, where one exists, a PyTorch library call's, the wall time of a
    wrapper call, and the least time the card could take (``bound_ms``);
@@ -197,7 +201,8 @@ def kernel_phase(images):
     for name, (na, nb) in zip(("stage1", "stage2", "stage3"), (("conv1a", "conv1b"), ("conv2a", "conv2b"), ("conv3a", "conv3b"))):
         ca, cb = getattr(sp, na), getattr(sp, nb)
         args = (x, ca.weight, ca.bias, cb.weight, cb.bias)
-        out = cuda_conv.stage_conv(*args)
+        packed = cuda_conv.pack_stage(*args[1:], x.dtype)  # packed once, as SuperPoint does
+        out = cuda_conv.stage_conv(*args, packed=packed)
         ref = cuda_conv.stage_conv_plain(*args)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -219,7 +224,7 @@ def kernel_phase(images):
         row = {
             "shape": f"{Hs}x{Ws} {Cin}->{Cmid}->{Cout}",
             "max_abs_err": err, "tol": tol,
-            **timings(lambda: cuda_conv.stage_conv(*args), ("stage_mma_kernel",),
+            **timings(lambda: cuda_conv.stage_conv(*args, packed=packed), ("stage_mma_kernel",),
                       lambda: cuda_conv.stage_conv_plain(*args), library),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
         }
@@ -230,13 +235,14 @@ def kernel_phase(images):
         # the plain version without TF32; the sums differ only in order
         xf = x.float()
         wf = tuple(t.float() for t in args[1:])
-        out32 = cuda_conv.stage_conv(xf, *wf)
+        packed32 = cuda_conv.pack_stage(*wf, torch.float32)
+        out32 = cuda_conv.stage_conv(xf, *wf, packed=packed32)
         ref32 = cuda_conv.stage_conv_plain(xf, *wf)
         torch.cuda.synchronize()
         err32 = (out32 - ref32).abs().max().item()
         tol32 = 1e-4 * ref32.abs().max().item()
         emit({"phase": "kernels", "kernel": name, "dtype": "float32", "max_abs_err": err32, "tol": tol32,
-              "ms": device_ms(lambda: cuda_conv.stage_conv(xf, *wf), ("stage_fma_kernel",))[0]})
+              "ms": device_ms(lambda: cuda_conv.stage_conv(xf, *wf, packed=packed32), ("stage_fma_kernel",))[0]})
         if not err32 <= tol32:
             raise AssertionError(f"{name} float32: kernel vs plain max |err| {err32} > {tol32}")
         stage_rows.append(row)
@@ -253,21 +259,32 @@ def kernel_phase(images):
     rows["stage_conv"] = mean_row(stage_rows[1:])
 
     # --- attention at B=2, H=4, K=1024, d=64 ------------------------------
+    # The two banks of a pair hold different valid counts, so a kernel that
+    # read the other batch item's mask (cross-attention passes the other
+    # bank's validity) would disagree; (0, 0) is a bank with no valid key.
     B, K, Hh, d = 2, 1024, 4, 64
-    for dtype, n_valid in ((torch.bfloat16, 1000), (torch.bfloat16, 0), (torch.float32, 1000)):
+    for dtype, counts in ((torch.bfloat16, (1000, 937)), (torch.bfloat16, (0, 0)), (torch.float32, (1000, 937))):
         q, k, v = (torch.randn((B, K, Hh, d), generator=gen, device=dev).to(dtype) for _ in range(3))
-        valid = (torch.arange(K, device=dev) < n_valid)[None].expand(B, K).contiguous()
+        valid = torch.arange(K, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
         out = cuda_kernels.attention(q, k, v, valid)
         ref = cuda_kernels.attention_plain(q, k, v, valid)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        # f32: the JAX package's bound; bf16: 2^-6 of max|v| (probabilities
-        # and outputs round to bf16 at different points in the two versions)
-        tol = 2e-5 if dtype == torch.float32 else v.float().abs().max().item() / 64
-        row = {"dtype": str(dtype).split(".")[-1], "valid": n_valid, "max_abs_err": err, "tol": tol}
+        # f32: the JAX package's bound; bf16: 2^-6 of max |out|, about two bf16
+        # ulps of the largest output (probabilities and outputs round to bf16
+        # at different points in the two versions)
+        tol = 2e-5 if dtype == torch.float32 else 2.0**-6 * ref.float().abs().max().item()
+        row = {"dtype": str(dtype).split(".")[-1], "valid": list(counts), "max_abs_err": err, "tol": tol}
         if dtype == torch.float32:
             row["ms"] = device_ms(lambda: cuda_kernels.attention(q, k, v, valid), ("attention_fma_kernel",))[0]
-        if dtype == torch.bfloat16 and n_valid == 1000:
+        if dtype == torch.bfloat16 and counts[0]:
+            # the check can fail: the plain version with the batch items'
+            # masks swapped, or with the first 64-key tile dropped, must
+            # each miss the tolerance
+            dropped = valid.clone()
+            dropped[:, :64] = False
+            row["wrong_mask_err"] = (cuda_kernels.attention_plain(q, k, v, valid.flip(0)).float() - ref.float()).abs().max().item()
+            row["dropped_tile_err"] = (cuda_kernels.attention_plain(q, k, v, dropped).float() - ref.float()).abs().max().item()
             mask = torch.where(valid, 0.0, -1e9).to(dtype)[:, None, None, :]
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
             flops = 4.0 * B * Hh * K * K * d
@@ -282,7 +299,9 @@ def kernel_phase(images):
             rows["attention"] = dict(row)
         emit({"phase": "kernels", "kernel": "attention", **row})
         if not err <= tol:
-            raise AssertionError(f"attention {row['dtype']} valid={n_valid}: max |err| {err} > {tol}")
+            raise AssertionError(f"attention {row['dtype']} valid={counts}: max |err| {err} > {tol}")
+        if "wrong_mask_err" in row and not min(row["wrong_mask_err"], row["dropped_tile_err"]) > tol:
+            raise AssertionError(f"attention: tolerance {tol} does not tell a wrong mask or a dropped tile from the right result")
 
     # --- Sinkhorn at 1025 x 1025 ------------------------------------------
     sink_errs = []
@@ -308,10 +327,15 @@ def kernel_phase(images):
             ops = iters * 2 * M * N * 6 + 2 * M * N  # per element and half-sweep: add, max; add, sub, exp, add
             nbytes = 4.0 * (2 * M * N + 2 * (M + N))
             b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32)
+            # the 40 half-sweeps each read the matrix once, from L2: the time
+            # the card takes to read it that often, measured as one reduction
+            # over the matrix expanded 2 * iters times (stride 0, so L2-resident)
+            l2_ms = device_ms(lambda: C.expand(2 * iters, M, N).sum())[0]
             row.update({
                 **timings(lambda: cuda_kernels.sinkhorn(C, mu, nu, iters), ("row_sweep", "col_sweep", "finalize"),
                           lambda: cuda_kernels.sinkhorn_plain(C, mu, nu, iters), plain_calls=3),
                 "bound_ms": b_ms, "bound_by": b_by,
+                "l2_sweeps_bound_ms": l2_ms, "l2_read_tb_s": 2 * iters * 4.0 * M * N / (l2_ms * 1e-3) / 1e12,
             })
             rows["sinkhorn"] = dict(row)
         emit({"phase": "kernels", "kernel": "sinkhorn", **row})
@@ -471,7 +495,7 @@ def main() -> int:
 
     # --- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
-    cuda_ext.build(verbose="--ptxas" in sys.argv)
+    cuda_ext.extension(verbose="--ptxas" in sys.argv)
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
     images, _, _ = render_sequence(N_FRAMES, H, W, FX, seed=0)

@@ -91,6 +91,39 @@ def test_stage_conv_wrapper_runs_plain_version_on_cpu_tensors():
     assert torch.equal(out, stage_conv_plain(*args))
 
 
+def test_superpoint_packs_stage_weights_once_per_weight_set():
+    """The stage kernel's weight packing is cached on the module and redone
+    only when a stage parameter changes (``load_state_dict``, ``.to()``, an
+    in-place update). The bf16 packing holds W[tap][k][n] at the
+    mma.m16n8k16 B-fragment position [tap][k // 16][n // 8][lane 4 (n % 8) +
+    (k % 8) // 2][register (k % 16) // 8][half k % 2]."""
+    _, state = _random_params(6)
+    sp = SuperPoint()
+    sp.load_state_dict(state)
+    p1 = sp._packed_stages()
+    assert sp._packed_stages() is p1
+    assert torch.equal(p1[0].ba, state["conv1a.bias"]) and p1[1].wa.dtype == torch.float32
+    _, state2 = _random_params(7)
+    sp.load_state_dict(state2)
+    p2 = sp._packed_stages()
+    assert p2 is not p1 and torch.equal(p2[0].ba, state2["conv1a.bias"])
+    sp.to(torch.bfloat16)
+    p3 = sp._packed_stages()
+    assert p3 is not p2 and p3[1].dtype == torch.bfloat16
+    assert p3[0].wa.dtype == torch.float32 and p3[1].wa.dtype == torch.int32  # Cin = 1 stays a 9-tap filter
+    with torch.no_grad():
+        sp.conv2b.weight.mul_(2)
+    p4 = sp._packed_stages()
+    assert p4 is not p3 and sp._packed_stages() is p4
+
+    w = sp.conv2b.weight  # (co, ci, 3, 3)
+    co, ci = w.shape[:2]
+    frag = p4[1].wb.view(torch.bfloat16).reshape(9, ci // 16, co // 8, 32, 2, 2)
+    tap, k, n = torch.meshgrid(torch.arange(9), torch.arange(ci), torch.arange(co), indexing="ij")
+    got = frag[tap, k // 16, n // 8, 4 * (n % 8) + (k % 8) // 2, (k % 16) // 8, k % 2]
+    assert torch.equal(got, w.permute(2, 3, 1, 0).reshape(9, ci, co))
+
+
 def test_simple_nms_and_sample_descriptors_match_jax():
     rng = np.random.default_rng(5)
     scores = rng.random((48, 64)).astype(np.float32) ** 4

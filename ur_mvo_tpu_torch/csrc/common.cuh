@@ -30,5 +30,3 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f<T>(from_f<T>(x)); }
 
 }  // namespace urmvo
-
-extern "C" const char* urmvo_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ur_mvo_tpu_torch.ops.cuda_conv import stage_conv
+from ur_mvo_tpu_torch.ops.cuda_conv import PackedStage, pack_stage, stage_conv
 from ur_mvo_tpu_torch.ops.nms import simple_nms
 
 # (name, in_ch, out_ch, kernel) in forward order; pools after the 'b' conv
@@ -81,6 +81,21 @@ class SuperPoint(nn.Module):
         self.kernels = kernels
         for name, cin, cout, k in _ENCODER + _HEADS:
             setattr(self, name, nn.Conv2d(cin, cout, k, padding=k // 2))
+        self._packed: tuple = (None, [], [])
+
+    def _packed_stages(self) -> list[PackedStage]:
+        """Stages 1-3's weights in the stage kernel's layout, packed once and
+        reused while every stage parameter keeps its storage and version
+        (``.to()``, ``load_state_dict`` and in-place updates repack). The
+        cache keeps the parameters' storages alive, so an address in its key
+        cannot come back as another tensor's."""
+        params = [t for pair in _STAGES for n in pair for t in (getattr(self, n).weight, getattr(self, n).bias)]
+        key = [(t.data_ptr(), t.dtype, t.device, t._version) for t in params]
+        if self._packed[0] != key:
+            convs = [(getattr(self, na), getattr(self, nb)) for na, nb in _STAGES]
+            packed = [pack_stage(ca.weight, ca.bias, cb.weight, cb.bias, self.dtype) for ca, cb in convs]
+            self._packed = (key, [t.detach() for t in params], packed)
+        return self._packed[2]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -99,9 +114,10 @@ class SuperPoint(nn.Module):
     def backbone(self, image: torch.Tensor) -> torch.Tensor:
         """Shared encoder: (B, H, W, 1) -> (B, H/8, W/8, 128), NHWC."""
         x = image
-        for na, nb in _STAGES:
+        packed = self._packed_stages() if self.kernels and x.is_cuda else [None] * len(_STAGES)
+        for (na, nb), p in zip(_STAGES, packed):
             ca, cb = getattr(self, na), getattr(self, nb)
-            x = stage_conv(x, ca.weight, ca.bias, cb.weight, cb.bias, plain=not self.kernels)
+            x = stage_conv(x, ca.weight, ca.bias, cb.weight, cb.bias, plain=not self.kernels, packed=p)
         x = _nchw(x)
         x = F.relu(self.conv4a(x))
         x = F.relu(self.conv4b(x))

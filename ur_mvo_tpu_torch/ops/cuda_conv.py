@@ -10,13 +10,14 @@ W % 128 == 0.
 
 :func:`stage_conv` takes the weights in the ``nn.Conv2d`` layout (OIHW)
 and the biases in any float dtype; they are rounded to the activation
-dtype, as the TPU kernel rounds them to bf16.
+dtype, as the TPU kernel rounds them to bf16, and packed into the kernel's
+layout by :func:`pack_stage`.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +26,6 @@ from ur_mvo_tpu_torch.ops import cuda_ext
 
 # (Cin, Cmid, Cout) the kernel is instantiated for: stages 1, 2, 3
 SUPPORTED = ((1, 64, 64), (64, 64, 64), (64, 128, 128))
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def stage_conv_plain(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
@@ -71,11 +71,39 @@ def _mma_weights(w: torch.Tensor) -> torch.Tensor:
     return packed.view(torch.int32).reshape(9, ci // 16, co // 8, 32, 2)
 
 
+class PackedStage(NamedTuple):
+    """One stage's weights in the kernel's layout, for activations of
+    ``dtype`` with ``cin`` channels (see :func:`pack_stage`)."""
+
+    dtype: torch.dtype
+    cin: int
+    wa: torch.Tensor
+    ba: torch.Tensor
+    wb: torch.Tensor
+    bb: torch.Tensor
+
+
+@torch.no_grad()
+def pack_stage(wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor, bb: torch.Tensor, dtype: torch.dtype) -> PackedStage:
+    """OIHW weights and biases -> the kernel's layout for ``dtype``
+    activations: bfloat16 packs the 64-channel convs in mma-fragment order
+    (conv_a with Cin = 1 stays a float 9-tap filter), float32 reorders to
+    [tap][ci][co]; biases become float32 holding ``dtype``-rounded values.
+    It depends only on the weights: ``SuperPoint`` packs once and reuses it."""
+    if dtype == torch.bfloat16:
+        wa_k = _kernel_weights(wa, dtype) if wa.shape[1] == 1 else _mma_weights(wa)
+        wb_k = _mma_weights(wb)
+    else:
+        wa_k, wb_k = _kernel_weights(wa, dtype), _kernel_weights(wb, dtype)
+    return PackedStage(dtype, wa.shape[1], wa_k, ba.to(dtype).float().contiguous(), wb_k, bb.to(dtype).float().contiguous())
+
+
 def stage_conv(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor, bb: torch.Tensor,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False, packed: Optional[PackedStage] = None) -> torch.Tensor:
     """One fused encoder stage. A CPU tensor runs :func:`stage_conv_plain`;
-    a CUDA tensor launches the kernel or raises. ``plain=True`` asks for
-    the plain version on any device (the on-card comparison)."""
+    a CUDA tensor launches the kernel or raises, with the weights from
+    ``packed`` when given (else packed for this call). ``plain=True`` asks
+    for the plain version on any device (the on-card comparison)."""
     if plain or x.device.type == "cpu":
         return stage_conv_plain(x, wa, ba, wb, bb)
     if x.device.type != "cuda":
@@ -84,29 +112,14 @@ def stage_conv(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Te
     Cmid, Cout = wa.shape[0], wb.shape[0]
     if (Cin, Cmid, Cout) not in SUPPORTED or wa.shape[1] != Cin or wb.shape[1] != Cmid:
         raise ValueError(f"stage_conv: channels {(Cin, Cmid, Cout)} not in {SUPPORTED}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stage_conv: dtype {x.dtype} not supported")
     if H % 2 or W % 2:
         raise ValueError(f"stage_conv: H and W must be even, got {H}x{W}")
-    dt = x.dtype
-    x = x.contiguous()
-    if dt == torch.bfloat16:  # tensor cores; conv_a with Cin = 1 stays a 9-tap filter
-        wa_k = _kernel_weights(wa, dt) if Cin == 1 else _mma_weights(wa)
-        wb_k = _mma_weights(wb)
-    else:
-        wa_k, wb_k = _kernel_weights(wa, dt), _kernel_weights(wb, dt)
-    ba_k, bb_k = ba.to(dt).float().contiguous(), bb.to(dt).float().contiguous()
-    out = torch.empty((B, H // 2, W // 2, Cout), dtype=dt, device=x.device)
-    lib = cuda_ext.library("stage_conv")
-    fn = lib.urmvo_stage_conv
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        err = fn(
-            _DTYPES[dt], Cin, Cmid, Cout,
-            x.data_ptr(), wa_k.data_ptr(), ba_k.data_ptr(), wb_k.data_ptr(), bb_k.data_ptr(), out.data_ptr(),
-            B, H, W, cuda_ext.stream_of(x),
-        )
-    cuda_ext.check(lib, err, "stage_conv")
+    if packed is None:
+        packed = pack_stage(wa, ba, wb, bb, x.dtype)
+    elif packed.dtype != x.dtype or packed.cin != Cin:
+        raise ValueError(f"stage_conv: weights packed for {packed.dtype}, Cin={packed.cin}; got {x.dtype}, Cin={Cin}")
+    out = cuda_ext.extension().stage_conv(x.contiguous(), packed.wa, packed.ba, packed.wb, packed.bb)
     cuda_ext.count("stage1_conv" if Cin == 1 else "stage_conv")
     return out

@@ -1,13 +1,12 @@
 """Build, load and count the port's CUDA kernels.
 
-Each source in ``ur_mvo_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes`` (pointers from ``Tensor.data_ptr()``, the stream from
-``torch.cuda.current_stream()``). A library is built at first use, into
-``build/ur_mvo_tpu_torch_ext/`` beside the package, under a name that
-hashes its sources and flags, so an edit rebuilds and an unchanged tree
-reuses the build. All missing libraries are compiled at once, one
-``nvcc`` process per source.
+The kernels (``csrc/stage_conv.cu``, ``attention.cu``, ``sinkhorn.cu``, each
+exporting a plain C launcher) and their binding (``csrc/bindings.cpp``, the
+only source that includes PyTorch's headers) are one extension, compiled
+for ``sm_90a`` by ``torch.utils.cpp_extension.load`` at first use into
+``build/ur_mvo_tpu_torch_ext/`` beside the package. ``load`` compiles the
+sources in parallel (ninja), rebuilds what an edit changed and reuses an
+unchanged build.
 
 Nothing here runs when the module is imported, and nothing here is
 reached on the CPU: the CPU path runs the kernels' plain versions.
@@ -20,114 +19,49 @@ path went through.
 from __future__ import annotations
 
 import collections
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
-
-import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ur_mvo_tpu_torch_ext"
-# one shared library per source; each source includes csrc/common.cuh
-SOURCES = ("stage_conv", "attention", "sinkhorn")
-NVCC_FLAGS = (
+SOURCES = ("bindings.cpp", "stage_conv.cu", "attention.cu", "sinkhorn.cu")
+# The -gencode flag replaces load's own target flags. The -U flags undo
+# load's -D__CUDA_NO_*__ defaults, so the .cu sources compile as plain nvcc
+# would compile them.
+CUDA_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",
-    "-std=c++17",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
+    "-U__CUDA_NO_HALF_OPERATORS__",
+    "-U__CUDA_NO_HALF_CONVERSIONS__",
+    "-U__CUDA_NO_BFLOAT16_CONVERSIONS__",
+    "-U__CUDA_NO_HALF2_OPERATORS__",
 )
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_ext = None
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (neither on PATH nor under CUDA_HOME); cannot build the CUDA kernels")
-
-
-def _lib_path(name: str, extra_flags: tuple) -> Path:
-    h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
-        h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + extra_flags).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
-    """Compile every missing library (in parallel) and load all of them.
-
-    ``verbose`` adds ``-Xptxas -v`` and prints what the compiler reports
-    (registers, shared memory and spills per kernel). Raises with the
-    compiler's output if any build fails."""
-    extra = ("-Xptxas", "-v") if verbose else ()
+def extension(verbose: bool = False):
+    """The extension module, built and loaded at first use; raises if the
+    build fails. ``verbose`` shows the build's commands and what ``ptxas``
+    reports per kernel (registers, shared memory, spills)."""
+    global _ext
     with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name in SOURCES:
-            if name in _libs:
-                continue
-            path = _lib_path(name, extra)
-            if path.exists():
-                continue
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, path)
-        failures = []
-        for name, (proc, tmp, path) in procs.items():
-            out, _ = proc.communicate(timeout=900)
-            if verbose and out:
-                print(f"[nvcc {name}]\n{out}", flush=True)
-            if proc.returncode != 0:
-                failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
-            else:
-                os.replace(tmp, path)
-        if failures:
-            raise RuntimeError("\n".join(failures))
-        for name in SOURCES:
-            if name not in _libs:
-                _libs[name] = ctypes.CDLL(str(_lib_path(name, extra)))
-        return dict(_libs)
+        if _ext is None:
+            from torch.utils.cpp_extension import load
 
-
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building all at first use."""
-    lib = _libs.get(name)
-    if lib is None:
-        lib = build()[name]
-    return lib
-
-
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a C launcher returned an error (a refused launch never
-    runs, and ``torch.cuda.synchronize()`` would not report it). Negative
-    codes are the launcher's own: a shape or type it does not take."""
-    if err == 0:
-        return
-    if err < 0:
-        raise ValueError(f"{what}: the kernel does not take this configuration (code {err})")
-    lib.urmvo_error_string.restype = ctypes.c_char_p
-    lib.urmvo_error_string.argtypes = [ctypes.c_int]
-    raise RuntimeError(f"{what}: CUDA launch failed: {lib.urmvo_error_string(err).decode()} ({err})")
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _ext = load(
+                name="ur_mvo_tpu_torch_ext",
+                sources=[str(CSRC / s) for s in SOURCES],
+                build_directory=str(BUILD_DIR),
+                extra_cflags=["-O3"],
+                extra_cuda_cflags=list(CUDA_FLAGS) + (["-Xptxas=-v"] if verbose else []),
+                verbose=verbose,
+            )
+        return _ext
 
 
 def count(name: str) -> None:

@@ -7,7 +7,6 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -15,7 +14,6 @@ import torch
 from ur_mvo_tpu_torch.ops import cuda_ext
 
 _NEG = -1e9
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------
@@ -46,21 +44,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch
     Kkv = k.shape[1]
     if k.shape != (B, Kkv, H, d) or v.shape != k.shape or kv_valid.shape != (B, Kkv):
         raise ValueError(f"attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} valid{tuple(kv_valid.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} not supported")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     valid = kv_valid.to(torch.uint8).contiguous()
-    out = torch.empty_like(q)
-    lib = cuda_ext.library("attention")
-    fn = lib.urmvo_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        err = fn(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            B, Kq, Kkv, H, d, 1.0 / math.sqrt(d), cuda_ext.stream_of(q),
-        )
-    cuda_ext.check(lib, err, "attention")
+    out = cuda_ext.extension().attention(q.contiguous(), k.contiguous(), v.contiguous(), valid, 1.0 / math.sqrt(d))
     cuda_ext.count("attention")
     return out
 
@@ -98,22 +85,9 @@ def sinkhorn(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor
     M, N = couplings.shape
     if couplings.dtype != torch.float32 or log_mu.shape != (M,) or log_nu.shape != (N,):
         raise ValueError("sinkhorn: expects float32 (M, N) couplings with (M,) and (N,) marginals")
-    C = couplings.contiguous()
-    mu = log_mu.to(torch.float32).contiguous()
-    nu = log_nu.to(torch.float32).contiguous()
-    u = torch.zeros((M,), dtype=torch.float32, device=C.device)
-    v = torch.zeros((N,), dtype=torch.float32, device=C.device)
-    out = torch.empty_like(C)
-    lib = cuda_ext.library("sinkhorn")
-    fn = lib.urmvo_sinkhorn
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    with torch.cuda.device(C.device):
-        err = fn(
-            C.data_ptr(), mu.data_ptr(), nu.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            M, N, int(iterations), cuda_ext.stream_of(C),
-        )
-    cuda_ext.check(lib, err, "sinkhorn")
+    out = cuda_ext.extension().sinkhorn(
+        couplings.contiguous(), log_mu.to(torch.float32).contiguous(), log_nu.to(torch.float32).contiguous(), int(iterations)
+    )
     cuda_ext.count("sinkhorn")
     return out
 
