@@ -28,6 +28,18 @@ from ur_mvo_tpu_torch.ops.ransac import ransac_fundamental
 from ur_mvo_tpu_torch.runtime.extractor import NeuralExtractor
 from ur_mvo_tpu_torch.utils import synthscene as tscene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU path is thousands of tiny eager ops: PyTorch's
+    intra-op thread pool costs several times what it gives there, most of
+    all beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SP_V3 = os.path.join(REPO, "weights", "superpoint_scratch_v3.npz")
 SG_CKPT = os.path.join(REPO, "weights", "superglue_v3scene.npz")
@@ -139,14 +151,30 @@ def test_main_operating_point_floors_on_cpu():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (walked, so a new one is covered), and
+    ``chip_smoke.py`` as far as a machine without a card lets it import,
+    pull in neither JAX nor the JAX package."""
     code = (
-        "import sys, ur_mvo_tpu_torch, ur_mvo_tpu_torch.runtime.extractor, ur_mvo_tpu_torch.weights\n"
+        "import importlib, pkgutil, sys, ur_mvo_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(ur_mvo_tpu_torch.__path__, 'ur_mvo_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "need = ['engine', 'components', 'runtime.frontend', 'runtime.backend', 'runtime.map_store', 'runtime.publisher',\n"
+        "        'runtime.extractor', 'ops.lie', 'ops.pnp', 'ops.pose_opt', 'ops.cuda_pose', 'ops.epipolar',\n"
+        "        'ops.triangulation', 'ops.ba', 'ops.ransac', 'ops.linalg', 'utils.timing', 'utils.metrics',\n"
+        "        'utils.tum_io', 'weights']\n"
+        "missing = [n for n in need if 'ur_mvo_tpu_torch.' + n not in names]\n"
+        "assert not missing, missing\n"
+        "from ur_mvo_tpu_torch.engine import UR_MVO\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'ur_mvo_tpu' "
         "or m.startswith('ur_mvo_tpu.')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        lines = [ln.strip() for ln in f]
+    imports = [ln for ln in lines if ln.startswith(("import ", "from "))]
+    assert imports and not [ln for ln in imports if ln.split()[1].split(".")[0] in ("jax", "ur_mvo_tpu")]
 
 
 def test_entry_points_default_to_cuda():
@@ -154,10 +182,14 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
+        from ur_mvo_tpu_torch.engine import UR_MVO
+
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(None)
         with pytest.raises(RuntimeError, match="CUDA"):
             NeuralExtractor(tconfig.Configs(), make_pinhole(W, H, FX, FX, W / 2, H / 2))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            UR_MVO(tconfig.Configs(), camera=make_pinhole(W, H, FX, FX, W / 2, H / 2))
 
 
 def test_config_copy_matches_jax_defaults():

@@ -1,14 +1,15 @@
 // Python bindings of the port's CUDA kernels.
 //
 // torch.utils.cpp_extension.load compiles this file together with
-// stage_conv.cu, attention.cu and sinkhorn.cu into one extension
+// stage_conv.cu, attention.cu, sinkhorn.cu and pose_gn.cu into one extension
 // (ur_mvo_tpu_torch/ops/cuda_ext.py). It is the only source that includes
 // PyTorch's headers: the .cu files export plain C launchers, so nvcc compiles
 // them without those headers. Each binding checks device, dtype, size and
 // contiguity, allocates the outputs on the input's device, launches on
 // PyTorch's current stream and raises if the launcher refused the
 // configuration or the launch failed. The Python wrappers (ops/cuda_conv.py,
-// ops/cuda_kernels.py) own the layouts and count the launches.
+// ops/cuda_kernels.py, ops/cuda_pose.py) own the layouts and count the
+// launches.
 
 #include <torch/extension.h>
 
@@ -22,6 +23,12 @@ extern "C" int urmvo_attention(int dtype, const void* q, const void* k, const vo
                                void* out, int B, int Kq, int Kkv, int H, int head_dim, float scale, void* stream);
 extern "C" int urmvo_sinkhorn(const float* C, const float* log_mu, const float* log_nu, float* u, float* v,
                               float* out, int M, int N, int iters, void* stream);
+
+extern "C" int urmvo_pose_gn(const float* X, const float* uv, const uint8_t* valid, const float* R0,
+                             const float* t0, float* pose_out, uint8_t* inliers, int B, int N, float fx, float fy,
+                             float cx, float cy, float bf, float chi2_mono, float chi2_stereo, int rounds, int iters,
+                             float damping, void* stream);
+extern "C" int urmvo_pose_gn_chain(float* out, int B, int steps, void* stream);
 
 namespace {
 
@@ -120,10 +127,47 @@ at::Tensor sinkhorn(const at::Tensor& C, const at::Tensor& log_mu, const at::Ten
   return out;
 }
 
+// X, uv (B, N, 3) float32, valid (B, N) uint8, R0 (B, 3, 3), t0 (B, 3) ->
+// {pose (B, 12) float32: R row-major then t; inliers (B, N) uint8}.
+std::vector<at::Tensor> pose_gn(const at::Tensor& X, const at::Tensor& uv, const at::Tensor& valid,
+                                const at::Tensor& R0, const at::Tensor& t0, double fx, double fy, double cx,
+                                double cy, double bf, double chi2_mono, double chi2_stereo, int64_t rounds,
+                                int64_t iters, double damping) {
+  TORCH_CHECK(X.is_cuda() && X.dim() == 3 && X.size(2) == 3, "pose_gn: X must be a (B, N, 3) CUDA tensor");
+  const int64_t B = X.size(0), N = X.size(1);
+  expect(X, X, at::kFloat, B * N * 3, "pose_gn: X");
+  expect(uv, X, at::kFloat, B * N * 3, "pose_gn: uv");
+  expect(valid, X, at::kByte, B * N, "pose_gn: valid");
+  expect(R0, X, at::kFloat, B * 9, "pose_gn: R0");
+  expect(t0, X, at::kFloat, B * 3, "pose_gn: t0");
+  const c10::cuda::CUDAGuard guard(X.device());
+  at::Tensor pose = at::empty({B, 12}, X.options());
+  at::Tensor inliers = at::empty({B, N}, valid.options());
+  check_launch(urmvo_pose_gn(X.data_ptr<float>(), uv.data_ptr<float>(), valid.data_ptr<uint8_t>(),
+                             R0.data_ptr<float>(), t0.data_ptr<float>(), pose.data_ptr<float>(),
+                             inliers.data_ptr<uint8_t>(), int(B), int(N), float(fx), float(fy), float(cx), float(cy),
+                             float(bf), float(chi2_mono), float(chi2_stereo), int(rounds), int(iters),
+                             float(damping), stream_of(X)),
+               "pose_gn");
+  return {pose, inliers};
+}
+
+// `steps` dependent block-wide reduce-and-broadcast pairs of pose_gn's width in
+// an otherwise empty kernel, B blocks: the yardstick of pose_gn's chain.
+at::Tensor pose_gn_chain(const at::Tensor& like, int64_t B, int64_t steps) {
+  TORCH_CHECK(like.is_cuda(), "pose_gn_chain: needs a CUDA tensor for its device");
+  const c10::cuda::CUDAGuard guard(like.device());
+  at::Tensor out = at::empty({B}, like.options().dtype(at::kFloat));
+  check_launch(urmvo_pose_gn_chain(out.data_ptr<float>(), int(B), int(steps), stream_of(like)), "pose_gn_chain");
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stage_conv", &stage_conv, "Fused SuperPoint encoder stage (csrc/stage_conv.cu)");
   m.def("attention", &attention, "Masked multi-head attention core (csrc/attention.cu)");
   m.def("sinkhorn", &sinkhorn, "Log-domain Sinkhorn sweeps (csrc/sinkhorn.cu)");
+  m.def("pose_gn", &pose_gn, "Pose-only robust Gauss-Newton schedule (csrc/pose_gn.cu)");
+  m.def("pose_gn_chain", &pose_gn_chain, "Dependent reduce-and-broadcast chain of pose_gn's width (csrc/pose_gn.cu)");
 }

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
-The kernels (``csrc/stage_conv.cu``, ``attention.cu``, ``sinkhorn.cu``, each
-exporting a plain C launcher) and their binding (``csrc/bindings.cpp``, the
-only source that includes PyTorch's headers) are one extension, compiled
+The kernels (``csrc/stage_conv.cu``, ``attention.cu``, ``sinkhorn.cu``,
+``pose_gn.cu``, each exporting a plain C launcher) and their binding
+(``csrc/bindings.cpp``, the only source that includes PyTorch's headers)
+are one extension, compiled
 for ``sm_90a`` by ``torch.utils.cpp_extension.load`` at first use into
 ``build/ur_mvo_tpu_torch_ext/`` beside the package. ``load`` compiles the
 sources in parallel (ninja), rebuilds what an edit changed and reuses an
@@ -24,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ur_mvo_tpu_torch_ext"
-SOURCES = ("bindings.cpp", "stage_conv.cu", "attention.cu", "sinkhorn.cu")
+SOURCES = ("bindings.cpp", "stage_conv.cu", "attention.cu", "sinkhorn.cu", "pose_gn.cu")
 # The -gencode flag replaces load's own target flags. The -U flags undo
 # load's -D__CUDA_NO_*__ defaults, so the .cu sources compile as plain nvcc
 # would compile them.

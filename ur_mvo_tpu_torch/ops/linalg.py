@@ -20,6 +20,17 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
 
 
+def assert_true_float32_matmul() -> None:
+    """Geometry never runs TF32: a function that calls a real ``matmul``
+    on float32 checks the process setting instead of changing it."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "float32 matmul precision is "
+            f"{torch.get_float32_matmul_precision()!r}; the geometry needs 'highest' "
+            "(torch.set_float32_matmul_precision('highest'))"
+        )
+
+
 def det3(A: torch.Tensor) -> torch.Tensor:
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -186,3 +197,53 @@ def smallest_singular_vector(A: torch.Tensor, iterations: int = 8) -> torch.Tens
         v = torch.sum(Rinv * w[..., None, :], dim=-1)
         v = v / torch.clamp(_norm(v), min=1e-30)
     return v
+
+
+def cholesky_small(M: torch.Tensor) -> torch.Tensor:
+    """Unrolled Cholesky of SPD (..., n, n) for tiny fixed n (<= ~16).
+    Returns lower-triangular L with M = L L^T; pivots are clamped at
+    1e-10 so the factor stays finite on a semi-definite input."""
+    n = M.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = M[..., j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        d = torch.sqrt(torch.clamp(s, min=1e-10))
+        L[j][j] = d
+        inv_d = 1.0 / d
+        for i in range(j + 1, n):
+            t = M[..., i, j]
+            for k in range(j):
+                t = t - L[i][k] * L[j][k]
+            L[i][j] = t * inv_d
+    zero = torch.zeros_like(M[..., 0, 0])
+    rows = [torch.stack([L[i][j] if j <= i else zero for j in range(n)], dim=-1) for i in range(n)]
+    return torch.stack(rows, dim=-2)
+
+
+def spd_inverse_small(M: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of SPD (..., n, n) via the unrolled Cholesky:
+    M^{-1} = L^{-T} L^{-1}."""
+    Linv = tril_inverse_small(cholesky_small(M))
+    return mm(Linv.transpose(-1, -2), Linv)
+
+
+def nearest_rotation(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Polar decomposition: the rotation closest to (..., 3, 3) ``M`` with
+    det +1, plus the mean scale. R = M (M^T M)^{-1/2} from the analytic
+    3x3 eigensolver, the smallest-eigenvalue axis sign-fixed for
+    properness, then three Higham polish steps R <- (R + R^-T) / 2 (the
+    Cardano eigenvectors lose orthogonality when M^T M is nearly a
+    multiple of the identity; the polish recovers the polar factor)."""
+    MtM = mm(M.transpose(-1, -2), M)
+    evals, V = eigh3x3(MtM)
+    s = torch.sqrt(torch.clamp(evals, min=1e-30))  # singular values ascending
+    sign = torch.where(det3(M) < 0, -1.0, 1.0).to(M.dtype)
+    d = torch.stack([sign / s[..., 0], 1.0 / s[..., 1], 1.0 / s[..., 2]], dim=-1)
+    inv_sqrt = mm(V * d[..., None, :], V.transpose(-1, -2))
+    R = mm(M, inv_sqrt)
+    for _ in range(3):
+        R = 0.5 * (R + inv3x3(R).transpose(-1, -2))
+    scale = torch.mean(s, dim=-1) * sign
+    return R, scale

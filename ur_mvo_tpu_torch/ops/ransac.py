@@ -1,4 +1,5 @@
-"""Batched fundamental-matrix RANSAC (port of ``ur_mvo_tpu.ops.ransac``).
+"""Batched fundamental-matrix and homography RANSAC (port of
+``ur_mvo_tpu.ops.ransac``).
 
 All hypotheses are one batch: minimal sets are drawn with a Gumbel top-k
 (distinct indices), the 8-point null vectors come from batched inverse
@@ -16,10 +17,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ur_mvo_tpu_torch.ops.linalg import eigh3x3, mm, smallest_singular_vector
+from ur_mvo_tpu_torch.ops.linalg import eigh3x3, inv3x3, mm, smallest_singular_vector
 
 F_CHI2_TH = 3.841  # 1-dof 95% — inlier gate per direction
-SCORE_CAP = 5.991  # accumulate (cap - chi2)
+H_CHI2_TH = 5.991  # 2-dof 95%
+SCORE_CAP = 5.991  # both models accumulate (cap - chi2)
 
 
 def sample_minimal_sets(generator: torch.Generator, valid: torch.Tensor, num_sets: int, set_size: int) -> torch.Tensor:
@@ -78,6 +80,23 @@ def fit_fundamental_8pt(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     return F / torch.where(torch.abs(f22) > 1e-8, f22, torch.ones_like(f22))[..., None, None]
 
 
+def fit_homography_dlt(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """DLT homography: (..., N>=4, 2) x2 -> H21 (..., 3, 3) with ``x2 ~ H x1``."""
+    p1n, T1 = _normalize(p1)
+    p2n, T2 = _normalize(p2)
+    x1, y1 = p1n[..., 0], p1n[..., 1]
+    x2, y2 = p2n[..., 0], p2n[..., 1]
+    z = torch.zeros_like(x1)
+    o = torch.ones_like(x1)
+    rows_a = torch.stack([-x1, -y1, -o, z, z, z, x2 * x1, x2 * y1, x2], dim=-1)
+    rows_b = torch.stack([z, z, z, -x1, -y1, -o, y2 * x1, y2 * y1, y2], dim=-1)
+    A = torch.cat([rows_a, rows_b], dim=-2)  # (..., 2n, 9)
+    Hn = smallest_singular_vector(A).reshape(A.shape[:-2] + (3, 3))
+    H = mm(mm(inv3x3(T2), Hn), T1)
+    h22 = H[..., 2, 2]
+    return H / torch.where(torch.abs(h22) > 1e-8, h22, torch.ones_like(h22))[..., None, None]
+
+
 def _lines_T(M: torch.Tensor, xT: torch.Tensor, transpose: bool) -> torch.Tensor:
     """``l`` (..., 3, K) = M (or M^T) applied to homogeneous points ``xT``
     (3, K)."""
@@ -114,6 +133,33 @@ def score_fundamental(F: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, valid
     return score, valid & ok1 & ok2
 
 
+def score_homography(H21: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor, sigma: float = 1.0):
+    """Symmetric transfer-error chi^2 score for a homography; ``H21`` may
+    carry leading hypothesis dims. Returns (score (...,), inliers (..., K))."""
+    inv_s2 = 1.0 / (sigma * sigma)
+    H12 = inv3x3(H21)
+    x1T, x2T = _homog_T(p1, p2)
+
+    def transfer_err(H, xsrcT, pdstT):
+        y = _lines_T(H, xsrcT, False)  # (..., 3, K)
+        w = y[..., 2, :]
+        w = torch.where(torch.abs(w) > 1e-12, w, torch.full_like(w, 1e-12))
+        du = y[..., 0, :] / w - pdstT[0]
+        dv = y[..., 1, :] / w - pdstT[1]
+        return du * du + dv * dv
+
+    d1 = transfer_err(H12, x2T, x1T) * inv_s2
+    d2 = transfer_err(H21, x1T, x2T) * inv_s2
+    ok1 = d1 <= H_CHI2_TH
+    ok2 = d2 <= H_CHI2_TH
+    zero = torch.zeros((), dtype=d1.dtype, device=d1.device)
+    score = torch.sum(
+        torch.where(valid & ok1, SCORE_CAP - d1, zero) + torch.where(valid & ok2, SCORE_CAP - d2, zero),
+        dim=-1,
+    )
+    return score, valid & ok1 & ok2
+
+
 class RansacResult(NamedTuple):
     model: torch.Tensor  # (3, 3)
     score: torch.Tensor  # scalar
@@ -140,3 +186,22 @@ def ransac_fundamental(
     scores, inliers = score_fundamental(Fs, p1, p2, valid, sigma)
     best = torch.argmax(scores)
     return RansacResult(model=Fs[best], score=scores[best], inliers=inliers[best])
+
+
+def ransac_homography(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    valid: torch.Tensor,
+    iterations: int = 200,
+    sigma: float = 1.0,
+    sets: Optional[torch.Tensor] = None,
+) -> RansacResult:
+    """Batched homography RANSAC (8-point DLT sets, as the reference's
+    initializer uses); ``sets`` as in :func:`ransac_fundamental`."""
+    if sets is None:
+        sets = sample_minimal_sets(generator, valid, iterations, 8)
+    Hs = fit_homography_dlt(p1[sets], p2[sets])
+    scores, inliers = score_homography(Hs, p1, p2, valid, sigma)
+    best = torch.argmax(scores)
+    return RansacResult(model=Hs[best], score=scores[best], inliers=inliers[best])

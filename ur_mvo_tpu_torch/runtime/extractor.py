@@ -8,6 +8,11 @@ kernel) -> mutual decode, with the mutual-NN min-match floor -> 8-point
 fundamental RANSAC outlier rejection. Both stay on the device: no host
 sync inside either call.
 
+``OracleExtractor`` is the test double: given a synthetic scene (world
+points + ground-truth camera poses) it produces exact projections with
+configurable noise and identity descriptors, so the whole VO runtime can
+be driven without trained weights.
+
 Not ported yet: the ``hybrid`` matcher, resolution buckets, sub-pixel
 peaks, patch descriptors and the right-camera map; a configuration that
 asks for one raises.
@@ -47,6 +52,10 @@ class NeuralExtractor:
     RANSAC sampler's generator is seeded from ``cfg.runtime.seed + 1``.
     ``kernels=False`` runs the kernels' plain versions on any device: the
     on-card comparison asks for it explicitly; the main path never does."""
+
+    # ``match`` queues device work without a host sync, so the tracker can
+    # fuse it with the track step into one readback a frame
+    fused_track = True
 
     def __init__(self, cfg: Configs, camera: Camera, device: DeviceLike = None, kernels: bool = True):
         self.cfg = cfg
@@ -156,3 +165,93 @@ class NeuralExtractor:
             keep = torch.where(m.num_valid() >= 8, res.inliers, valid)
             m = filter_matches(m, keep)
         return m
+
+
+class OracleExtractor:
+    """Ground-truth feature oracle over a synthetic scene.
+
+    ``points``: (N, 3) world points with N <= capacity. Each point owns a
+    fixed slot identity; ``extract_with_pose`` projects the visible ones
+    through the frame's ground-truth camera pose (passed via
+    ``Frame.meta['T_wc']``) and ``match`` associates by slot identity:
+    perfect data association, configurable pixel noise and dropout. The
+    numpy draws are those of the JAX package's oracle, so both see the
+    same features from the same seed.
+    """
+
+    def __init__(
+        self,
+        points: np.ndarray,
+        camera: Camera,
+        capacity: int = 1024,
+        noise_px: float = 0.0,
+        dropout: float = 0.0,
+        seed: int = 0,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.points = np.asarray(points, dtype=np.float32)
+        self.camera = camera
+        self.capacity = int(capacity)
+        assert self.points.shape[0] <= self.capacity
+        self.noise_px = noise_px
+        self.dropout = dropout
+        self.rng = np.random.default_rng(seed)
+        # Distinct descriptors per landmark (unit norm).
+        D = 256
+        desc = self.rng.normal(size=(self.points.shape[0], D)).astype(np.float32)
+        self.desc = desc / np.linalg.norm(desc, axis=1, keepdims=True)
+        # post-descriptor-draw generator state, restored by reset_state
+        # so reset runs reproduce a fresh oracle's noise/dropout stream
+        self._rng_state0 = self.rng.bit_generator.state
+
+    def extract_with_pose(self, T_wc: np.ndarray) -> FeatureBank:
+        n = self.points.shape[0]
+        R_wc = np.asarray(T_wc[:3, :3])
+        t_wc = np.asarray(T_wc[:3, 3])
+        pc = (self.points - t_wc) @ R_wc  # R_cw = R_wc^T
+        z = pc[:, 2]
+        cam = self.camera
+        u = cam.fx * pc[:, 0] / np.maximum(z, 1e-6) + cam.cx
+        v = cam.fy * pc[:, 1] / np.maximum(z, 1e-6) + cam.cy
+        if self.noise_px > 0:
+            u = u + self.rng.normal(scale=self.noise_px, size=n)
+            v = v + self.rng.normal(scale=self.noise_px, size=n)
+        visible = (z > 0.05) & (u >= 0) & (u <= cam.width - 1) & (v >= 0) & (v <= cam.height - 1)
+        if self.dropout > 0:
+            visible &= self.rng.random(n) > self.dropout
+
+        K = self.capacity
+        kpts = np.zeros((K, 2), np.float32)
+        desc = np.zeros((K, self.desc.shape[1]), np.float32)
+        scores = np.zeros((K,), np.float32)
+        valid = np.zeros((K,), bool)
+        kpts[:n] = np.stack([u, v], axis=1)
+        desc[:n] = self.desc
+        scores[:n] = 1.0
+        valid[:n] = visible
+        dev = self.device
+        return FeatureBank(
+            scores=torch.from_numpy(scores * valid).to(dev),
+            kpts=torch.from_numpy(kpts * valid[:, None]).to(dev),
+            desc=torch.from_numpy(desc * valid[:, None]).to(dev),
+            valid=torch.from_numpy(valid).to(dev),
+        )
+
+    def reset_state(self) -> None:
+        """Restore the noise/dropout stream to its fresh-oracle state."""
+        self.rng.bit_generator.state = self._rng_state0
+
+    def extract(self, image, mask=None) -> FeatureBank:
+        raise NotImplementedError("OracleExtractor requires extract_with_pose(T_wc)")
+
+    def match(self, bank0: FeatureBank, bank1: FeatureBank, outlier_rejection: bool = True,
+              floor: Optional[int] = None) -> Matches:
+        # Slot-identity association: slot i matches slot i when both valid.
+        both = bank0.valid & bank1.valid
+        ids = torch.arange(both.shape[0], dtype=torch.int32, device=both.device)
+        return Matches(
+            idx1=torch.where(both, ids, torch.full_like(ids, -1)),
+            score=both.to(torch.float32),
+            valid=both,
+        )

@@ -43,3 +43,58 @@ def superglue_from_numpy(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     ``desc_center``) -> ``SuperGlue`` state dict. The pytree's flat keys
     are the module's keys; weights stay (in, out)."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in _flatten(params).items()}
+
+
+# ---------------------------------------------------------------------------
+# State carried across: the JAX package's NamedTuples, given as numpy
+# (``jax.tree.map(np.asarray, value)``), into the port's tensors. A field's
+# position decides its meaning, so any tuple with the same field order does.
+# ---------------------------------------------------------------------------
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+
+
+def feature_bank_from_numpy(bank, device="cpu"):
+    """(scores, kpts, desc, valid) -> ``ops.keypoints.FeatureBank``."""
+    from ur_mvo_tpu_torch.ops.keypoints import FeatureBank
+
+    scores, kpts, desc, valid = bank
+    f32 = torch.float32
+    return FeatureBank(scores=_tensor(scores, device, f32), kpts=_tensor(kpts, device, f32),
+                       desc=_tensor(desc, device, f32), valid=_tensor(valid, device, torch.bool))
+
+
+def matches_from_numpy(matches, device="cpu"):
+    """(idx1, score, valid) -> ``ops.matching.Matches``."""
+    from ur_mvo_tpu_torch.ops.matching import Matches
+
+    idx1, score, valid = matches
+    return Matches(idx1=_tensor(idx1, device, torch.int32), score=_tensor(score, device, torch.float32),
+                   valid=_tensor(valid, device, torch.bool))
+
+
+def pose_obs_from_numpy(obs, device="cpu"):
+    """(X, uv, valid) -> ``ops.pose_opt.PoseObs``."""
+    from ur_mvo_tpu_torch.ops.pose_opt import PoseObs
+
+    X, uv, valid = obs
+    return PoseObs(X=_tensor(X, device, torch.float32), uv=_tensor(uv, device, torch.float32),
+                   valid=_tensor(valid, device, torch.bool))
+
+
+def ba_problem_from_numpy(prob, device="cpu"):
+    """The ten fields of a ``BAProblem`` -> ``ops.ba.BAProblem`` (indices
+    as int64, masks as bool)."""
+    from ur_mvo_tpu_torch.ops.ba import BAProblem
+
+    R_wc, t_wc, frame_valid, frame_fixed, X, point_valid, obs_frame, obs_point, obs_uv, obs_valid = prob
+    f32, b, i64 = torch.float32, torch.bool, torch.int64
+    return BAProblem(
+        R_wc=_tensor(R_wc, device, f32), t_wc=_tensor(t_wc, device, f32),
+        frame_valid=_tensor(frame_valid, device, b), frame_fixed=_tensor(frame_fixed, device, b),
+        X=_tensor(X, device, f32), point_valid=_tensor(point_valid, device, b),
+        obs_frame=_tensor(obs_frame, device, i64), obs_point=_tensor(obs_point, device, i64),
+        obs_uv=_tensor(obs_uv, device, f32), obs_valid=_tensor(obs_valid, device, b),
+    )
