@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (``ur_mvo_tpu_torch``) on one card: its
-kernels, its front end and the whole monocular engine.
+kernels, its front end, the whole monocular engine and its long,
+loop-bearing protocol with global optimization.
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -44,7 +45,7 @@ layers, bf16 compute. Phases, each printing one JSON line:
 7. ba: one window-sized bundle adjustment on the card against the same
    problem on the CPU (to a tolerance: ``index_add_`` adds with atomics);
 8. engine: ``UR_MVO(cfg, device="cuda")`` with the production mono
-   configuration (matcher ``sg``, relocalization off) on the accuracy
+   configuration (matcher ``sg``, relocalization on) on the accuracy
    protocol of ``scripts/bench_accuracy.py`` for the ``mono/3d`` cell (24
    frames at 30 fps, scene seeds 11-13, scale-corrected ATE of the emitted
    trajectory), launch counts reset just before: every run must initialise,
@@ -55,17 +56,56 @@ layers, bf16 compute. Phases, each printing one JSON line:
    frame, the device's busy and idle share of a run, and the same sequences
    through the plain versions on the card, held to the same gate. The checked
    runs go under PyTorch's deterministic ``index_add_`` so that they repeat;
-   the timed runs do not.
+   the timed runs do not. Relocalizations are reported per run;
+9. long: the ``mono/long`` protocol of ``scripts/bench_accuracy.py --long``
+   (its long configuration: culling, loop closure, relocalization, the
+   tracking-time NN floor; 120 frames of the out-and-back trajectory at
+   480x640, fx 520, seeds 11-13, deterministic algorithms), launch counts
+   reset just before: per seed the online ATE of the emitted trajectory,
+   ``global_optimize()`` (seconds by part) and the ATE of the keyframe
+   trajectory after it, loop edges, relocalizations, frames lost and the
+   full BA's size and resolved assembly. Gate of
+   ``tests/test_accuracy_gates.py``: no failed seed, online mean < 1.2,
+   after global optimization < 0.60 and < online; every kernel of the path
+   must launch. Its full BA stays far under the 128M-element line (~500
+   points, culling on), so it takes the float32 ``index_add_`` route, and
+   the phase says so; then ``Backend.global_optimize()`` on a long map
+   past the line (41 keyframes of the out-and-back path, ~10,000 points
+   seen twice or more, drifted as mono VO drifts, one loop edge), launch
+   counts reset just before: its full BA must resolve to ``"sorted"`` and
+   launch the sorted kernel, keyframes and points within phase 7's limits
+   of the same call with ``kernels=False``, keyframe ATE lower after it;
+10. ba_kernels: both BA point-reduce kernels against their plain versions
+   at that full BA's shape (its power-of-two buckets) and at a global BA's
+   (65,536 points, 524,288 observations, FF 48): within 1e-5 of max
+   |plain|, the sorted kernel bit for bit equal over two launches, points
+   without observations exact zeros, and a slot id or a point rank off by
+   one must miss the limit; device ms after a read that evicts the L2
+   (and back to back), wall, plain, the ``index_add_`` yardstick and the
+   bound;
+11. global_ba: ``bundle_adjust`` at that global size: ``"auto"`` must
+   resolve to ``"sorted"`` and launch the sorted kernel, and its solution
+   must agree with the plain assembly on the card (R 1e-3, t 1e-3, X 5e-3,
+   inliers >= 99%) and reach the truth (t 5e-2, R 5e-3); the explicit
+   ``"pallas"`` (the unsorted kernel, atomics) likewise with its worst
+   point within 5e-2, a limit that the plain assembly on shuffled
+   observations must meet and a wrong slot assembly must miss; host ms.
 
-Then the ``kernels`` line (launches from the engine run), the ``nvidia-smi`` name/power-limit line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
-exit code is not 0 and that last line is not printed. Without CUDA it exits
+Then each phase's seconds, the ``kernels`` line (launches from the engine
+run; the sorted reduction's from the long map's ``global_optimize``, the
+unsorted one's from the ``"pallas"`` global BA; times at the global
+shape), the ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
+``{"phase": ..., "failed": ...}`` line and the run goes on to the next
+phase; at the end any failure makes the exit code 1 and leaves the
+``kernels`` and last lines out. An error that is not a check raises. Without CUDA it exits
 with code 2 before doing anything. ``--only-pose-gn`` builds, checks the
 pose-GN kernel and stops: the short first run after an edit to it.
 ``--engine-seeds 0,11,12 [--repeats N] [--deterministic]`` builds and runs the
 engine N times on each of those scenes (and once on the plain versions),
 printing each run's keyframes, frames lost and ATE: the spread from one run
 to the next.
+``--only-ba-kernels`` builds and checks the two point-reduce kernels;
+``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
 ``--ptxas`` prints registers and shared memory per kernel.
 """
 
@@ -79,6 +119,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 SP_WEIGHTS = os.path.join(REPO, "weights", "superpoint_scratch_v3.npz")
 SG_WEIGHTS = os.path.join(REPO, "weights", "superglue_v3scene.npz")
 H, W, FX = 240, 320, 260.0
@@ -94,6 +135,13 @@ FPS = 30.0
 MAX_ATE = 0.15
 MIN_KEYFRAMES = 3
 MAX_FRAMES_LOST = ENGINE_FRAMES // 4
+# the long protocol of scripts/bench_accuracy.py --long: 120 frames of the
+# out-and-back trajectory at 480x640, fx 520, seeds 11-13; the gate of
+# tests/test_accuracy_gates.py for mono/long sg: no failed seed, online
+# mean ATE < 1.2, mean ATE after global optimization < 0.60 and < online
+LONG_W, LONG_H, LONG_FX = 640, 480, 520.0
+LONG_FRAMES = 120
+LONG_MAX_ONLINE, LONG_MAX_PGO = 1.2, 0.60
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
@@ -106,6 +154,8 @@ TPU_KERNELS = {
     "attention": "ur_mvo_tpu/ops/pallas_kernels.py:122",
     "sinkhorn": "ur_mvo_tpu/ops/pallas_kernels.py:31",
     "pose_gn": "ur_mvo_tpu/ops/pallas_pose.py:93",
+    "point_reduce_sorted": "ur_mvo_tpu/ops/pallas_ba.py:141",
+    "point_reduce": "ur_mvo_tpu/ops/pallas_ba.py:38",
 }
 SOURCES = {
     "stage1_conv": "ur_mvo_tpu_torch/csrc/stage_conv.cu",
@@ -113,7 +163,26 @@ SOURCES = {
     "attention": "ur_mvo_tpu_torch/csrc/attention.cu",
     "sinkhorn": "ur_mvo_tpu_torch/csrc/sinkhorn.cu",
     "pose_gn": "ur_mvo_tpu_torch/csrc/pose_gn.cu",
+    "point_reduce_sorted": "ur_mvo_tpu_torch/csrc/point_reduce.cu",
+    "point_reduce": "ur_mvo_tpu_torch/csrc/point_reduce.cu",
 }
+ENGINE_KERNELS = ("stage1_conv", "stage_conv", "attention", "sinkhorn", "pose_gn")
+# (P, O, FF) of the point-reduce kernels' checks: a long sequence's full BA
+# past the 128M-element line (the main run takes the long run's own full-BA
+# shape in its place) and a global BA over a long sequence, 65,536 points and
+# 524,288 observations (the size ur_mvo_tpu/ops/ba.py:580-583 names)
+BA_KERNEL_SHAPES = ((16384, 65536, 48), (65536, 524288, 48))
+# that global BA as a problem: points, observations per point, keyframes;
+# the keyframes' spacing in metres
+GLOBAL_BA = (65536, 8, 48)
+SPACING = 0.2
+# the unsorted kernel's BA at that size against the plain assembly: the
+# worst point's limit, in metres (0.5 px at 6-12 m and fx 400 leaves a
+# point seen over a few metres of baseline a depth sigma of 5-10 cm)
+PALLAS_X = 5e-2
+# phase 9's long map: scene points, features observed a keyframe
+LONG_MAP = (14000, 1000)
+
 
 
 def emit(obj) -> None:
@@ -167,28 +236,51 @@ def profile_device(fn, calls: int):
     return device, host, wall
 
 
-def device_ms(fn, names=None, calls: int = 20):
+def device_ms(fn, names=None, calls: int = 20, exclude=()):
     """Device time per call of ``fn`` from the profiler's kernel records: of
-    the kernels whose name contains one of ``names``, or of every kernel.
-    Where the profiler records no device time, CUDA events around
-    back-to-back calls instead (returned with the timer's name)."""
+    the kernels whose name contains one of ``names``, or of every kernel,
+    leaving out those whose name contains one of ``exclude``. Where the
+    profiler records no device time, CUDA events around back-to-back calls
+    instead (returned with the timer's name)."""
     by_name, _, _ = profile_device(fn, calls)
-    us = sum(v for k, v in by_name.items() if names is None or any(n in k for n in names))
+    us = sum(v for k, v in by_name.items()
+             if (names is None or any(n in k for n in names)) and not any(x in k for x in exclude))
     if us > 0:
         return us / 1e3 / calls, "profiler"
     return time_ms(fn), "events"
 
 
-def timings(kernel, names, plain, library=None, plain_calls: int = 20):
+def timings(kernel, names, plain, library=None, plain_calls: int = 20, cold_l2: bool = False):
     """``ms``: device time per call of the kernel's own CUDA kernels;
     ``wall_ms``: CUDA-event time per wrapper call, back to back (host work
     included); ``plain_ms`` / ``library_ms``: device time per call of every
-    kernel the plain version / the library call runs."""
+    kernel the plain version / the library call runs. ``cold_l2``: each
+    timed call follows a read of 256 MB (five times the L2), whose kernel
+    is left out of the times, so that a kernel whose output fits in L2 does
+    not find the previous call's there; the back-to-back reading is kept as
+    ``ms_back_to_back``."""
+    out = {"wall_ms": time_ms(kernel)}
+    flush = ()
+    if cold_l2:
+        import torch
+
+        l2 = torch.ones((16384, 4096), device="cuda")
+        flush = ("at::native::reduce_kernel",)
+        out["ms_back_to_back"] = device_ms(kernel, names)[0]
+
+        def cold(fn):
+            def run():
+                l2.sum(1)
+                return fn()
+            return run
+
+        kernel, plain, library = cold(kernel), cold(plain), library and cold(library)
     ms, timer = device_ms(kernel, names)
     return {
-        "ms": ms, "timer": timer, "wall_ms": time_ms(kernel),
-        "plain_ms": device_ms(plain, calls=plain_calls)[0],
-        "library_ms": None if library is None else device_ms(library)[0],
+        "ms": ms, "timer": timer,
+        "plain_ms": device_ms(plain, calls=plain_calls, exclude=flush)[0],
+        "library_ms": None if library is None else device_ms(library, exclude=flush)[0],
+        **out,
     }
 
 
@@ -204,14 +296,14 @@ def nvidia_smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def front_end_config(Configs):
+def front_end_config(Configs, width=W, height=H):
     cfg = Configs()
     cfg.superpoint.weights_path = SP_WEIGHTS
     cfg.superglue.weights_path = SG_WEIGHTS
     cfg.superpoint.capacity = 1024
     cfg.superpoint.max_keypoints = 1000
     cfg.superpoint.keypoint_threshold = 1e-4
-    cfg.superglue.image_width, cfg.superglue.image_height = W, H
+    cfg.superglue.image_width, cfg.superglue.image_height = width, height
     cfg.runtime.compute_dtype = "bfloat16"
     return cfg
 
@@ -489,6 +581,487 @@ def pose_gn_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the two BA point-reduce kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def point_reduce_problem(P, O, FF, seed, dev):
+    """Value rows of a BA point side: every point observed by 2..2(O/P)-2
+    rows from distinct free slots, the rest of the O rows padding (zero
+    values on point 0, as BA pads). Returns the rows in a shuffled order
+    (the unsorted kernel's input) and, as ``ops.ba.make_sorted_layout``
+    lays them out, the point-sorted rows with the padding last, their
+    slots and the CSR over points (the sorted kernel's)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    per = np.minimum(rng.integers(2, max(3, 2 * O // P - 1), P), FF)
+    while per.sum() > O:
+        per = np.maximum(per - 1, 1)
+    pt = np.repeat(np.arange(P), per)
+    slot = np.concatenate([rng.permutation(FF)[:k] for k in per])
+    n = len(pt)
+    A = np.zeros((O, 18), np.float32)
+    Vp = np.zeros((O, 12), np.float32)
+    A[:n] = rng.normal(size=(n, 18))
+    Vp[:n] = rng.normal(size=(n, 12))
+    pt = np.concatenate([pt, np.zeros(O - n, np.int64)])
+    slot = np.concatenate([slot, np.zeros(O - n, np.int64)])
+    shuffle = rng.permutation(O)
+    key = np.where(np.arange(O) < n, pt, P)[shuffle]
+    order = np.argsort(key, kind="stable")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    seg = np.searchsorted(key[order], np.arange(P + 1))
+    unsorted = tuple(t(a[shuffle]) for a in (A, Vp, pt, slot))
+    sorted_ = tuple(t(a[shuffle][order]) for a in (A, Vp, pt, slot)) + (t(seg),)
+    return unsorted, sorted_, n
+
+
+def ba_kernels_phase(smi, shapes=None):
+    """Both kernels against their plain versions at each shape (P, O, FF):
+    max |err| <= 1e-5 of max |plain| (float32 summation order), the sorted
+    kernel bit for bit equal over two launches, and two wrong inputs (one
+    row's slot id off by one; one row given to the neighbouring point, a
+    rank off by one) that must miss that limit. Returns the last shape's
+    rows (the global BA's, where ``global_ba`` launches them) with the
+    largest error over all shapes."""
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ba
+
+    dev = torch.device("cuda")
+    rows = None
+    worst = {"point_reduce_sorted": 0.0, "point_reduce": 0.0}
+    for P, O, FF in shapes or BA_KERNEL_SHAPES:
+        (A, Vp, pt, slot), (As, Vps, pts, slots, seg), n = point_reduce_problem(P, O, FF, seed=P + O, dev=dev)
+        ref = cuda_ba.point_reduce_plain(A, Vp, pt, slot, P, FF)
+        tol = 1e-5 * ref.abs().max().item()
+        out_s = cuda_ba.point_reduce_sorted(As, Vps, pts, slots, seg, FF)
+        again = cuda_ba.point_reduce_sorted(As, Vps, pts, slots, seg, FF)
+        out_u = cuda_ba.point_reduce(A, Vp, pt, slot, P, FF)
+        # the controls: a real row's slot id off by one; the first row of
+        # point 1 handed to point 0 (its rank off by one)
+        bad_slot = slots.clone()
+        real = int(seg[1])  # the first row of point 1
+        bad_slot[real] = (bad_slot[real] + 1) % FF
+        bad_pt, bad_seg = pts.clone(), seg.clone()
+        bad_pt[real] = 0
+        bad_seg[1] += 1
+        ctl_slot = cuda_ba.point_reduce_sorted(As, Vps, pts, bad_slot, seg, FF)
+        ctl_rank = cuda_ba.point_reduce_sorted(As, Vps, bad_pt, slots, bad_seg, FF)
+        torch.cuda.synchronize()
+        err_s = (out_s - ref).abs().max().item()
+        err_u = (out_u - ref).abs().max().item()
+        row = {
+            "shape": {"P": P, "O": O, "FF": FF, "real_rows": n}, "tol": tol,
+            "sorted_err": err_s, "unsorted_err": err_u, "sorted_bitwise_repeatable": bool(torch.equal(out_s, again)),
+            "control_slot_off_by_one_err": (ctl_slot - ref).abs().max().item(),
+            "control_rank_off_by_one_err": (ctl_rank - ref).abs().max().item(),
+            "empty_points_exact_zero": bool((out_s[torch.diff(seg) == 0] == 0).all()),
+        }
+        # the function needs the n real rows (padding rows are zero and
+        # add nothing) read once and the output written once
+        V = FF * 18 + 12
+        out_bytes = 4.0 * P * V
+        in_bytes = 4.0 * n * 30
+        b_s = bound_ms(in_bytes + 4.0 * n + 4.0 * (P + 1) + out_bytes, 30.0 * n, PEAK_F32)
+        b_u = bound_ms(in_bytes + 8.0 * n + out_bytes, 30.0 * n, PEAK_F32)
+        # the yardstick: ONE index_add_ of the bf16-rounded summands into
+        # the flat (P * V) output (after its zero fill)
+        cols = torch.cat([slot.clamp(0, FF - 1)[:, None] * 18 + torch.arange(18, device=dev),
+                          FF * 18 + torch.arange(12, device=dev).expand(O, 12)], 1)
+        flat = (pt[:, None] * V + cols).reshape(-1)
+        vals = torch.cat([A, Vp], 1).to(torch.bfloat16).float().reshape(-1)
+
+        def library():
+            return torch.zeros(P * V, device=dev).index_add_(0, flat, vals)
+
+        row["point_reduce_sorted"] = {
+            **timings(lambda: cuda_ba.point_reduce_sorted(As, Vps, pts, slots, seg, FF), ("point_reduce_sorted",),
+                      lambda: cuda_ba.point_reduce_plain(As, Vps, pts, slots, P, FF), library, cold_l2=True),
+            "bound_ms": b_s[0], "bound_by": b_s[1], "max_abs_err": err_s,
+        }
+        row["point_reduce"] = {
+            **timings(lambda: cuda_ba.point_reduce(A, Vp, pt, slot, P, FF), ("point_reduce_atomic", "Memset"),
+                      lambda: cuda_ba.point_reduce_plain(A, Vp, pt, slot, P, FF), library, cold_l2=True),
+            "bound_ms": b_u[0], "bound_by": b_u[1], "max_abs_err": err_u,
+        }
+        emit({"phase": "ba_kernels", **row, "card": smi})
+        where = f"ba_kernels P={P} O={O} FF={FF}"
+        if not (err_s <= tol and err_u <= tol):
+            raise AssertionError(f"{where}: kernel vs plain sorted {err_s}, unsorted {err_u} (<= {tol})")
+        if not row["sorted_bitwise_repeatable"]:
+            raise AssertionError(f"{where}: two launches of the sorted kernel differ")
+        if not row["empty_points_exact_zero"]:
+            raise AssertionError(f"{where}: a point without observations has a non-zero row")
+        if not min(row["control_slot_off_by_one_err"], row["control_rank_off_by_one_err"]) > tol:
+            raise AssertionError(f"{where}: the limit does not tell a wrong slot or rank from the right sums")
+        rows = {k: row[k] for k in worst}
+        worst = {k: max(v, row[k]["max_abs_err"]) for k, v in worst.items()}
+    return {k: dict(rows[k], max_abs_err=worst[k]) for k in worst}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the long protocol (relocalization, loop closure, global BA)
+# ---------------------------------------------------------------------------
+
+def long_map(n_points, per_kf, seed=31):
+    """A map store as a long monocular run leaves it before global
+    optimization, past the 128M-element line: keyframes at frames 0, 2, 5,
+    8, ..., 119 of the long protocol's out-and-back path (640x480, fx 520;
+    frames 0 and 2 are the full BA's gauge), ``n_points`` scene points 3-7 m
+    ahead, each keyframe observing ``per_kf`` of those in its view, drawn at
+    random (0.5 px noise, 1% gross outliers). The estimate drifts as mono
+    VO does: each step 0.5% a keyframe longer than the last and turned by a
+    growing heading error, every point placed by its first observer's
+    drifted pose (2 cm noise). One loop edge, the revisit of the start: the
+    first keyframe against the last, relative pose and inter-leg scale
+    measured from the truth. Returns the store, its keyframe slots in frame
+    order and their true positions."""
+    import numpy as np
+
+    from ur_mvo_tpu_torch.runtime.map_store import MapStore, StoreConfig
+    from ur_mvo_tpu_torch.utils.synthscene import out_and_back_trajectory, so3_exp
+
+    rng = np.random.default_rng(seed)
+    K = 1024
+    frames = [0] + list(range(2, LONG_FRAMES, 3))
+    T = out_and_back_trajectory(LONG_FRAMES)[frames]
+    R_true, t_true = T[:, :3, :3], T[:, :3, 3]
+    n = len(frames)
+    drift = 1.0 + 0.005 * np.arange(n)
+    R_est = np.stack([so3_exp(np.array([0.0, 0.002 * k, 0.001 * k])) @ R_true[k] for k in range(n)])
+    t_est = t_true.copy()
+    for k in range(1, n):
+        step = so3_exp(np.array([0.0, 0.002 * k, 0.0])) @ (t_true[k] - t_true[k - 1])
+        t_est[k] = t_est[k - 1] + drift[k] * step
+    X = np.stack([rng.uniform(-2.5, 5.5, n_points), rng.uniform(-1.8, 1.8, n_points), rng.uniform(3, 7, n_points)], 1)
+    st = MapStore(StoreConfig(max_keyframes=64, max_mappoints=n_points, keypoints_per_frame=K, store_descriptors=False))
+    mp = st.alloc_mappoints(n_points)
+    st.mp_good[mp] = True
+    first = np.full(n_points, -1)
+    slots = []
+    for k in range(n):
+        pc = (X - t_true[k]) @ R_true[k]
+        u, v = LONG_FX * pc[:, 0] / pc[:, 2] + LONG_W / 2, LONG_FX * pc[:, 1] / pc[:, 2] + LONG_H / 2
+        seen = np.nonzero((pc[:, 2] > 0.5) & (u > 0) & (u < LONG_W) & (v > 0) & (v < LONG_H))[0]
+        ids = np.sort(rng.choice(seen, min(per_kf, len(seen)), replace=False))
+        kpts = np.zeros((K, 3), np.float32)
+        uv = np.stack([u[ids], v[ids]], 1) + rng.normal(0, 0.5, (len(ids), 2))
+        uv[rng.random(len(ids)) < 0.01] += 40.0
+        kpts[: len(ids)] = np.concatenate([uv, -np.ones((len(ids), 1))], 1)
+        s = st.alloc_keyframe(frames[k], frames[k] / FPS, R_est[k].astype(np.float32), t_est[k].astype(np.float32),
+                              kpts, np.arange(K) < len(ids))
+        st.add_observations(s, mp[ids], np.arange(len(ids)))
+        first[ids[first[ids] < 0]] = k
+        slots.append(s)
+    seen = first >= 0
+    ref = first[seen]
+    # X_est = T_est(ref) T_true(ref)^-1 X
+    Xc = np.einsum("nji,nj->ni", R_true[ref], X[seen] - t_true[ref])
+    st.mp_pos[mp[seen]] = (np.einsum("nij,nj->ni", R_est[ref], Xc) + t_est[ref]
+                           + rng.normal(0, 0.02, Xc.shape)).astype(np.float32)
+    R_ij = (R_true[0].T @ R_true[-1]).astype(np.float32)
+    t_ij = (R_true[0].T @ (t_true[-1] - t_true[0])).astype(np.float32)
+    st.loop_edges.append((slots[0], slots[-1], R_ij, t_ij, 3.0, 1.0 / drift[-1]))
+    return st, np.asarray(slots), t_true
+
+
+def long_map_global_optimize(smi, template):
+    """``Backend.global_optimize()`` on :func:`long_map`'s store
+    (``LONG_MAP``), in a backend configured as ``template`` (the long
+    engine's), launch counts reset just before: its full BA must resolve
+    ``"auto"`` to ``"sorted"`` and launch the sorted kernel. The same call
+    with ``kernels=False`` on a copy of the store: keyframes and points
+    within phase 7's limits (R 1e-3, t 1e-3, X 5e-3) of it; the keyframe
+    ATE after it below the one before. Returns the kernel run's launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.runtime.backend import Backend
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+
+    st, order, t_true = long_map(*LONG_MAP)
+
+    def ate(store):
+        return float(ate_rmse(store.kf_t[order], t_true, align=True, correct_scale=True))
+
+    row = {"phase": "long_map", "keyframes": len(order), "ate_before": ate(st)}
+    stores, launches = {}, {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        b = Backend(template.camera, template.cfg, template.opt_cfg, store=copy.deepcopy(st),
+                    keypoints_per_frame=st.cfg.keypoints_per_frame, device="cuda", kernels=kernels)
+        torch.cuda.synchronize()
+        cuda_ext.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        b.global_optimize()
+        torch.cuda.synchronize()
+        launches[name] = dict(cuda_ext.LAUNCHES)
+        stores[name] = b.store
+        row[name] = {"seconds": time.perf_counter() - t0, "ate_after": ate(b.store), "full_ba": b.last_full_ba,
+                     "parts_s": {k: v["total_s"] for k, v in b.timer.summary().items()}, "launches": launches[name]}
+    k, p = stores["kernels"], stores["plain"]
+    used = np.nonzero(st.mp_obs_count >= 2)[0]
+    diff = {"R": float(np.abs(k.kf_R[order] - p.kf_R[order]).max()),
+            "t": float(np.abs(k.kf_t[order] - p.kf_t[order]).max()),
+            "X": float(np.abs(k.mp_pos[used] - p.mp_pos[used]).max())}
+    row["kernels_vs_plain"] = {**diff, "bitwise_equal": bool(np.array_equal(k.kf_t, p.kf_t)
+                                                            and np.array_equal(k.mp_pos, p.mp_pos))}
+    emit({**row, "card": smi})
+    full = row["kernels"]["full_ba"]
+    if full is None or full["assembly"] != "sorted" or launches["kernels"].get("point_reduce_sorted", 0) == 0:
+        raise AssertionError(f"long_map: the full BA {full} did not run the sorted kernel: {launches['kernels']}")
+    if launches["plain"]:
+        raise AssertionError(f"long_map: kernels=False launched kernels: {launches['plain']}")
+    if not (diff["R"] <= 1e-3 and diff["t"] <= 1e-3 and diff["X"] <= 5e-3):
+        raise AssertionError(f"long_map: kernels vs plain {diff} (R 1e-3, t 1e-3, X 5e-3)")
+    if not row["kernels"]["ate_after"] < row["ate_before"]:
+        raise AssertionError(f"long_map: keyframe ATE {row['ate_before']} -> {row['kernels']['ate_after']}")
+    return launches["kernels"], tuple(full["padded"])
+
+
+def long_phase(smi):
+    """``scripts/bench_accuracy.py --long`` for ``mono/long`` with matcher
+    ``sg``: per seed the online ATE of the emitted trajectory, then
+    ``global_optimize()`` and the ATE of the final keyframe trajectory,
+    under PyTorch's deterministic algorithms. Every kernel of the path must
+    launch. The full BA's size and resolved assembly are reported: on this
+    protocol culling keeps the map far under the 128M-element line (~500
+    points), so its full BA takes the float32 ``index_add_`` route; the
+    phase says so and then runs ``global_optimize`` on a long map past
+    the line (:func:`long_map_global_optimize`), which must launch the
+    sorted kernel. Returns the launch counts (the sorted kernel's from that
+    map) and that full BA's shape (P, O, FF)."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.components import Frame, Image
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+    from ur_mvo_tpu_torch.utils.synthscene import out_and_back_trajectory, render_sequence
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    poses_long = out_and_back_trajectory(LONG_FRAMES)
+    scenes = {}
+    for seed in ENGINE_SEEDS:
+        images, T_wc, _ = render_sequence(LONG_FRAMES, LONG_H, LONG_W, LONG_FX, seed=seed, n_planes=3,
+                                          z_background=6.0, poses=poses_long)
+        scenes[seed] = ([Frame(image=Image(images[i], i / FPS)) for i in range(LONG_FRAMES)], T_wc)
+    vo = production_engine(long_run=True)
+    backend = vo.tracker.backend
+
+    # --- the main path, with launch counts -------------------------------
+    cuda_ext.LAUNCHES.clear()
+    rows = []
+    for seed in ENGINE_SEEDS:
+        frames, T_wc = scenes[seed]
+        vo.reset()
+        vo.tracker.timer.reset()
+        t0 = time.perf_counter()
+        per_frame, stamps, poses, init_at = run_engine(vo, frames)
+        online_s = time.perf_counter() - t0
+        online = emitted_ate(stamps, poses, T_wc)
+        st = backend.store
+        row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": st.num_keyframes(),
+               "loop_edges": len(st.loop_edges), "relocalizations": vo.tracker.relocalizations,
+               "frames_lost": vo.tracker.frames_lost, "poses_emitted": len(poses), "online_ate": online,
+               "online_seconds": online_s,
+               "stages": {k: {"count": v["count"], "mean_ms": v["mean_ms"]} for k, v in vo.tracker.timer.summary().items()}}
+        backend.timer.reset()
+        backend.last_full_ba = None
+        t0 = time.perf_counter()
+        backend.global_optimize()
+        torch.cuda.synchronize()
+        row["global_optimize_seconds"] = time.perf_counter() - t0
+        row["global_optimize_parts_s"] = {k: v["total_s"] for k, v in backend.timer.summary().items()}
+        row["full_ba"] = backend.last_full_ba
+        kts, kpos, _ = vo.keyframe_trajectory()
+        kidx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, LONG_FRAMES - 1)
+        row["pgo_ate"] = float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True, correct_scale=True))
+        rows.append(row)
+        emit({"phase": "long", **row})
+    launches = dict(cuda_ext.LAUNCHES)
+    torch.use_deterministic_algorithms(False)
+    failed = [r["seed"] for r in rows if r["online_ate"] is None]
+    online = statistics.mean(r["online_ate"] for r in rows if r["online_ate"] is not None) if len(failed) < len(rows) else None
+    pgo = statistics.mean(r["pgo_ate"] for r in rows)
+    emit({"phase": "long_summary", "seeds": list(ENGINE_SEEDS), "frames": LONG_FRAMES, "size": [LONG_H, LONG_W],
+          "online_mean_ate": online, "pgo_mean_ate": pgo, "failed_seeds": failed,
+          "gate": {"online": LONG_MAX_ONLINE, "pgo": LONG_MAX_PGO}, "launches": launches, "card": smi})
+    if failed:
+        raise AssertionError(f"long: seeds {failed} emitted fewer than 5 poses (failed runs)")
+    if not (online < LONG_MAX_ONLINE and pgo < LONG_MAX_PGO and pgo < online):
+        raise AssertionError(f"long: online mean ATE {online} (< {LONG_MAX_ONLINE}), after global optimization "
+                             f"{pgo} (< {LONG_MAX_PGO} and < online)")
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"long: kernels of the path never launched: {missing}")
+    if any(r["full_ba"] is None for r in rows):
+        raise AssertionError("long: a seed's global_optimize ran no full BA")
+    crossed = [r["seed"] for r in rows if r["full_ba"]["assembly"] == "sorted"]
+    if not crossed:
+        emit({"phase": "long", "note": "no seed's map crossed the 128M-element line: its full BA took index_add_; "
+              "the sorted kernel must launch in global_optimize on the long map",
+              "full_ba_padded": [r["full_ba"]["padded"] for r in rows]})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    map_launches, (F, P, O) = long_map_global_optimize(smi, backend)
+    vo.shutdown()
+    launches["point_reduce_sorted"] = launches.get("point_reduce_sorted", 0) + map_launches.get("point_reduce_sorted", 0)
+    return launches, (P, O, F)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: a global BA through bundle_adjust's "auto"
+# ---------------------------------------------------------------------------
+
+def global_ba_problem(P, per, F, seed=21):
+    """P points 6-12 m ahead of F keyframes ``SPACING`` apart along a
+    gently turning path, each point observed by ``per`` of the keyframes
+    that see it, drawn at random (0.5 px noise, 1% gross outliers): a
+    keyframe shares points with every keyframe whose view overlaps its own.
+    The first two and the last two keyframes fixed at the truth (a loop has
+    closed: with the far end free the chain bends at little cost, and the
+    solve amplifies summation-order differences along that mode), the rest
+    and the points perturbed. Returns the problem's fields (numpy), the
+    truth and the camera."""
+    import numpy as np
+
+    from ur_mvo_tpu_torch.utils.synthscene import so3_exp
+
+    rng = np.random.default_rng(seed)
+    fx = fy = 400.0
+    cx, cy = 320.0, 240.0
+    R_true = np.stack([so3_exp(np.array([0.01 * np.sin(0.2 * f), 0.1 * np.sin(0.05 * f), 0.0])) for f in range(F)])
+    t_true = np.stack([[SPACING * f, 0.3 * np.sin(0.1 * f), 0.0] for f in range(F)])
+    X = np.stack([rng.uniform(-1.0, SPACING * F + 1.0, P), rng.uniform(-1.5, 1.5, P), rng.uniform(6, 12, P)], 1)
+    # each point's observers: `per` of the keyframes that see it, at random
+    pc_all = np.einsum("fji,pfj->pfi", R_true, X[:, None, :] - t_true[None])
+    u_all = fx * pc_all[..., 0] / pc_all[..., 2] + cx
+    v_all = fy * pc_all[..., 1] / pc_all[..., 2] + cy
+    seen = (pc_all[..., 2] > 1.0) & (u_all > 0) & (u_all < 2 * cx) & (v_all > 0) & (v_all < 2 * cy)
+    obs_p = np.repeat(np.arange(P), per)
+    obs_f = np.argsort(np.where(seen, rng.random((P, F)), 2.0), axis=1)[:, :per].reshape(-1)
+    pc = pc_all[obs_p, obs_f]
+    uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], 1) + rng.normal(0, 0.5, (len(obs_p), 2))
+    out = rng.random(len(obs_p)) < 0.01
+    uv[out] += 40.0
+    R0 = np.einsum("fij,fjk->fik", np.stack([so3_exp(0.01 * rng.normal(size=3)) for _ in range(F)]), R_true)
+    t0 = t_true + 0.03 * rng.normal(size=t_true.shape)
+    fixed = (np.arange(F) < 2) | (np.arange(F) >= F - 2)
+    R0[fixed], t0[fixed] = R_true[fixed], t_true[fixed]
+    f32 = np.float32
+    fields = (R0.astype(f32), t0.astype(f32), np.ones(F, bool), fixed,
+              (X + 0.05 * rng.normal(size=X.shape)).astype(f32), np.ones(P, bool), obs_f.astype(np.int64),
+              obs_p.astype(np.int64), np.concatenate([uv, -np.ones((len(uv), 1))], 1).astype(f32),
+              np.ones(len(obs_p), bool))
+    return fields, (R_true, t_true, X), (fx, fy, cx, cy, 0.0)
+
+
+def global_ba_phase(smi):
+    """``bundle_adjust`` on a global BA (``GLOBAL_BA``: 65,536 points and
+    524,288 observations over 48 keyframes, both ends fixed): ``"auto"``
+    must resolve to ``"sorted"`` and launch the sorted kernel, and its
+    solution must agree with the plain assembly's on the card (R 1e-3, t
+    1e-3, X 5e-3 at the worst point, inlier verdicts on >= 99%, the limits
+    of phase 7) and reach the truth (t within 5e-2 as in phase 7, R within
+    5e-3). Under PyTorch's deterministic algorithms the plain assembly's
+    ``index_add_`` sums each point's rows in row order, as the sorted
+    kernel does. Then the explicit ``assembly="pallas"`` (the unsorted
+    kernel), whose atomics leave the summation order to the scheduler: the
+    LM's accept test at convergence turns last-bit differences into moves
+    of the weakest points, so its worst point is held to ``PALLAS_X`` (R,
+    t and the verdicts to phase 7's limits). Two readings frame that
+    limit: the plain assembly on the observations in a shuffled order (the
+    same kind of difference, which must pass it) and the unsorted kernel
+    given every row's frame slot off by one (a wrong assembly, which must
+    miss it). At the production gauge, with only the first keyframes fixed
+    (``Backend._full_bundle_adjustment``; phase 9's long map), the atomic
+    route does not repeat at all: the chain's bending mode amplifies the
+    summation order. Returns the unsorted kernel's launches."""
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ba, cuda_ext
+    from ur_mvo_tpu_torch.ops.ba import BAConfig, bundle_adjust, permute_observations, resolve_assembly
+    from ur_mvo_tpu_torch.weights import ba_problem_from_numpy
+
+    P, per, F = GLOBAL_BA
+    fields, (R_true, t_true, _), geom = global_ba_problem(P, per, F)
+    prob = ba_problem_from_numpy(fields, "cuda")
+    perm = torch.randperm(P * per, generator=torch.Generator().manual_seed(5)).to("cuda")
+    # the fixed 10+5 schedule (tol 0): with the early exit, a last-bit
+    # difference in the cost can end the two runs at different iterations
+    cfg = BAConfig(max_free_frames=F, tol=0.0)
+    pallas = cfg._replace(assembly="pallas")
+    assembly = resolve_assembly(cfg, n_obs=P * per, n_points=P)
+    point_reduce = cuda_ba.point_reduce
+
+    def slot_off_by_one(A, Vp, pt, slot, P, FF, plain=False):
+        return point_reduce(A, Vp, pt, (slot + 1) % FF, P, FF, plain=plain)
+
+    runs, launches = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.no_grad():
+        bundle_adjust(prob, *geom, cfg, plain=True)  # warm-up: the solver libraries' first calls
+        for name, c, plain, p in (("plain", cfg, True, prob), ("auto", cfg, False, prob),
+                                  ("pallas", pallas, False, prob),
+                                  ("plain_shuffled", cfg, True, permute_observations(prob, perm)),
+                                  ("control_slot_off_by_one", pallas, False, prob)):
+            cuda_ba.point_reduce = slot_off_by_one if name.startswith("control") else point_reduce
+            try:
+                cuda_ext.LAUNCHES.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[name] = bundle_adjust(p, *geom, c, plain=plain)
+                torch.cuda.synchronize()
+            finally:
+                cuda_ba.point_reduce = point_reduce
+            launches[name] = dict(cuda_ext.LAUNCHES)
+            launches[name]["host_ms"] = 1e3 * (time.perf_counter() - t0)
+    torch.use_deterministic_algorithms(False)
+    shuffled = runs["plain_shuffled"]
+    runs["plain_shuffled"] = shuffled._replace(obs_inlier=torch.empty_like(shuffled.obs_inlier).index_put_(
+        (perm,), shuffled.obs_inlier))
+    ref = runs["plain"]
+    row = {"phase": "global_ba", "points": P, "observations": P * per, "keyframes": F, "assembly": assembly,
+           "pallas_x_limit": PALLAS_X}
+    for name in ("auto", "pallas", "plain_shuffled", "control_slot_off_by_one"):
+        r = runs[name]
+        dX = (r.X - ref.X).abs().amax(1)
+        row[name] = {
+            "R": (r.R_wc - ref.R_wc).abs().max().item(), "t": (r.t_wc - ref.t_wc).abs().max().item(),
+            "X": dX.max().item(), "X_q999": torch.quantile(dX, 0.999).item(),
+            "bitwise_equal": bool(torch.equal(r.X, ref.X) and torch.equal(r.t_wc, ref.t_wc)),
+            "inlier_agreement": (r.obs_inlier == ref.obs_inlier).float().mean().item(),
+            "launches": launches[name],
+            "err_t_vs_truth": (r.t_wc.cpu() - torch.from_numpy(t_true).float()).abs().max().item(),
+            "err_R_vs_truth": (r.R_wc.cpu() - torch.from_numpy(R_true).float()).abs().max().item(),
+        }
+    row["plain_host_ms"] = launches["plain"]["host_ms"]
+    row["inliers"] = int(runs["auto"].obs_inlier.sum().item())
+    emit({**row, "card": smi})
+    if assembly != "sorted" or launches["auto"].get("point_reduce_sorted", 0) == 0:
+        raise AssertionError(f"global_ba: \"auto\" resolved to {assembly!r}, launches {launches['auto']}")
+    if launches["plain"].get("point_reduce_sorted", 0) or launches["pallas"].get("point_reduce", 0) == 0:
+        raise AssertionError(f"global_ba: launches plain {launches['plain']}, pallas {launches['pallas']}")
+
+    def within(d, x_limit):
+        return d["R"] <= 1e-3 and d["t"] <= 1e-3 and d["X"] <= x_limit and d["inlier_agreement"] >= 0.99
+
+    for name, x_limit in (("auto", 5e-3), ("pallas", PALLAS_X), ("plain_shuffled", PALLAS_X)):
+        d = row[name]
+        if not within(d, x_limit):
+            raise AssertionError(f"global_ba {name} vs plain assembly (X {x_limit}): {d}")
+        if not (d["err_t_vs_truth"] < 5e-2 and d["err_R_vs_truth"] < 5e-3):
+            raise AssertionError(f"global_ba {name}: did not converge to the truth: {d}")
+    if within(row["control_slot_off_by_one"], PALLAS_X):
+        raise AssertionError(f"global_ba: a wrong assembly passes the pallas limits: {row['control_slot_off_by_one']}")
+    return {"point_reduce": launches["pallas"].get("point_reduce", 0)}
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the front end
 # ---------------------------------------------------------------------------
 
@@ -695,10 +1268,13 @@ def ba_phase():
 # Phase 8: the engine
 # ---------------------------------------------------------------------------
 
-def production_config(Configs, checkpoint_operating_point):
-    """The production mono configuration (``scripts/bench_accuracy.py``
-    with matcher ``sg``), relocalization off."""
-    cfg = front_end_config(Configs)
+def production_config(Configs, checkpoint_operating_point, long_run=False):
+    """The production mono configuration of ``scripts/bench_accuracy.py``
+    (``_production_cfg`` with matcher ``sg``): the checkpoint's operating
+    point, the init-only NN floor of 40, relocalization on. ``long_run``:
+    its long-sequence configuration at 480x640, with culling, loop closure
+    and the tracking-time NN floor of 40 on too."""
+    cfg = front_end_config(Configs, *((LONG_W, LONG_H) if long_run else (W, H)))
     op = checkpoint_operating_point(SG_WEIGHTS) or {}
     cfg.superpoint.capacity = op.get("capacity", 1024)
     cfg.superpoint.max_keypoints = op.get("max_keypoints", 1000)
@@ -706,7 +1282,11 @@ def production_config(Configs, checkpoint_operating_point):
     cfg.initializer.min_matches = op.get("min_matches", 60)
     cfg.initializer.min_features_first = op.get("min_features_first", 100)
     cfg.superglue.nn_fallback_min_matches_init = 40
-    cfg.backend.relocalization = False
+    cfg.backend.relocalization = True
+    if long_run:
+        cfg.backend.enable_culling = True
+        cfg.backend.loop_closure = True
+        cfg.superglue.nn_fallback_min_matches = 40
     return cfg
 
 
@@ -779,24 +1359,25 @@ def engine_run(vo, seed, scene=None):
     kf_ate, kts, kpos = keyframe_ate(vo, T_wc) if n_kf >= 3 else (None, [], np.zeros((0, 3)))
     row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": n_kf,
            "keyframe_frame_ids": [int(round(t * FPS)) for t in kts], "frames_lost": vo.tracker.frames_lost,
-           "poses_emitted": len(poses), "poses_finite": all(np.isfinite(p.matrix()).all() for p in poses),
+           "relocalizations": vo.tracker.relocalizations, "poses_emitted": len(poses), "poses_finite": all(np.isfinite(p.matrix()).all() for p in poses),
            "ate": emitted_ate(stamps, poses, T_wc), "keyframe_ate": kf_ate}
     return row, per_frame, kpos
 
 
-def production_engine(kernels=True):
+def production_engine(kernels=True, long_run=False):
     from ur_mvo_tpu_torch.camera import make_pinhole
     from ur_mvo_tpu_torch.config import Configs
     from ur_mvo_tpu_torch.engine import UR_MVO
     from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
 
-    return UR_MVO(production_config(Configs, checkpoint_operating_point),
-                  camera=make_pinhole(W, H, FX, FX, W / 2, H / 2), device="cuda", kernels=kernels)
+    w, h, fx = (LONG_W, LONG_H, LONG_FX) if long_run else (W, H, FX)
+    return UR_MVO(production_config(Configs, checkpoint_operating_point, long_run),
+                  camera=make_pinhole(w, h, fx, fx, w / 2, h / 2), device="cuda", kernels=kernels)
 
 
 def engine_sweep(seeds, repeats=2):
-    """How the engine fares on scenes of the ``mono/3d`` family with
-    relocalization off, and how far one run differs from the next: per
+    """How the engine fares on scenes of the ``mono/3d`` family, and how
+    far one run differs from the next: per
     seed, ``repeats`` runs on the kernels and one on the plain versions."""
     engines = {k: production_engine(k) for k in (True, False)}
     for seed in seeds:
@@ -853,7 +1434,7 @@ def engine_phase(smi):
     emit({"phase": "engine", "frames": ENGINE_FRAMES, "seeds": list(ENGINE_SEEDS), "runs": rows,
           "tracked_frames": tracked, "max_ate": MAX_ATE, "launches": launches, "card": smi})
     mean_ate = check_engine_runs(rows, "kernels", max_lost=MAX_FRAMES_LOST)
-    missing = [k for k in TPU_KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"engine: kernels of the main path never launched: {missing}")
     if launches["pose_gn"] < tracked:
@@ -944,16 +1525,56 @@ def main() -> int:
         pose_gn_phase()
         print(smi, flush=True)
         return 0
+    if "--only-ba-kernels" in sys.argv:
+        ba_kernels_phase(smi)
+        print(smi, flush=True)
+        return 0
+    if "--only-ba" in sys.argv:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
+        torch.use_deterministic_algorithms(False)
+        ba_kernels_phase(smi, ((P, O, F), BA_KERNEL_SHAPES[1]))
+        global_ba_phase(smi)
+        print(smi, flush=True)
+        return 0
+
+    seconds, failed = {}, []
+
+    def timed(name, fn, *args, on_failure=None):
+        """Run a phase; a failed check is printed and the run goes on to
+        the next phase (``on_failure`` stands in for its result), so that
+        one run shows every phase. The result line needs all to pass."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            emit({"phase": name, "failed": str(e)})
+            failed.append(name)
+            return on_failure
+        finally:
+            torch.use_deterministic_algorithms(False)
+            seconds[name] = time.perf_counter() - t0
 
     images, _, _ = render_sequence(N_FRAMES, H, W, FX, seed=0)
-    rows = kernel_phase(images)
-    rows["pose_gn"] = pose_gn_phase()
-    frontend_phases(images, smi)
-    ba_phase()
-    launches = engine_phase(smi)
+    rows = timed("kernels", kernel_phase, images, on_failure={})
+    rows["pose_gn"] = timed("pose_gn", pose_gn_phase)
+    timed("frontend", frontend_phases, images, smi)
+    timed("ba", ba_phase)
+    launches = timed("engine", engine_phase, smi, on_failure={})
+    long_launches, long_shape = timed("long", long_phase, smi, on_failure=({}, BA_KERNEL_SHAPES[0]))
+    rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
+    # the sorted kernel's launches are those of global_optimize's full BA;
+    # the unsorted kernel runs only where "pallas" is asked for
+    launches["point_reduce_sorted"] = long_launches.get("point_reduce_sorted", 0)
+    launches["point_reduce"] = timed("global_ba", global_ba_phase, smi, on_failure={}).get("point_reduce", 0)
+    emit({"phase": "seconds", **seconds, "total": time.perf_counter() - T_START})
+    if failed:
+        print(smi, flush=True)
+        print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
+        return 1
 
     kernels = []
-    for name in ("stage1_conv", "stage_conv", "attention", "sinkhorn", "pose_gn"):
+    for name in TPU_KERNELS:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_KERNELS[name],

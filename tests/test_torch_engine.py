@@ -207,11 +207,10 @@ def test_what_the_slice_leaves_out_raises():
     for setup in (tconfig.SensorSetup.STEREO, tconfig.SensorSetup.RGBD):
         with pytest.raises(NotImplementedError, match="monocular"):
             UR_MVO(tconfig.Configs(), setup, camera=cam, extractor=oracle, device="cpu")
-    for section, field in (("backend", "relocalization"), ("backend", "loop_closure"), ("local_map_tracking", "enabled")):
-        cfg = tconfig.Configs()
-        setattr(getattr(cfg, section), field, True)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam, extractor=oracle, device="cpu")
+    cfg = tconfig.Configs()
+    cfg.local_map_tracking.enabled = True
+    with pytest.raises(NotImplementedError, match="not ported"):
+        UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam, extractor=oracle, device="cpu")
     cfg = tconfig.Configs()
     cfg.superpoint.capacity = 16
     vo = UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam, extractor=oracle, device="cpu")

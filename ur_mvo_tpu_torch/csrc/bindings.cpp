@@ -1,15 +1,16 @@
 // Python bindings of the port's CUDA kernels.
 //
 // torch.utils.cpp_extension.load compiles this file together with
-// stage_conv.cu, attention.cu, sinkhorn.cu and pose_gn.cu into one extension
+// stage_conv.cu, attention.cu, sinkhorn.cu, pose_gn.cu and point_reduce.cu into
+// one extension
 // (ur_mvo_tpu_torch/ops/cuda_ext.py). It is the only source that includes
 // PyTorch's headers: the .cu files export plain C launchers, so nvcc compiles
 // them without those headers. Each binding checks device, dtype, size and
 // contiguity, allocates the outputs on the input's device, launches on
 // PyTorch's current stream and raises if the launcher refused the
 // configuration or the launch failed. The Python wrappers (ops/cuda_conv.py,
-// ops/cuda_kernels.py, ops/cuda_pose.py) own the layouts and count the
-// launches.
+// ops/cuda_kernels.py, ops/cuda_pose.py, ops/cuda_ba.py) own the layouts and
+// count the launches.
 
 #include <torch/extension.h>
 
@@ -29,6 +30,10 @@ extern "C" int urmvo_pose_gn(const float* X, const float* uv, const uint8_t* val
                              float cx, float cy, float bf, float chi2_mono, float chi2_stereo, int rounds, int iters,
                              float damping, void* stream);
 extern "C" int urmvo_pose_gn_chain(float* out, int B, int steps, void* stream);
+extern "C" int urmvo_point_reduce_sorted(const float* A, const float* Vp, const int* slot, const int* seg_start,
+                                         float* out, int P, int FF, void* stream);
+extern "C" int urmvo_point_reduce(const float* A, const float* Vp, const int* pt, const int* slot, float* out,
+                                  int O, int P, int FF, void* stream);
 
 namespace {
 
@@ -162,6 +167,45 @@ at::Tensor pose_gn_chain(const at::Tensor& like, int64_t B, int64_t steps) {
   return out;
 }
 
+// A (O, 18), Vp (O, 12) float32 point-sorted, slot (O,) int32, seg_start
+// (P + 1,) int32 -> (P, FF*18 + 12) float32 point-side segment sums.
+at::Tensor point_reduce_sorted(const at::Tensor& A, const at::Tensor& Vp, const at::Tensor& slot,
+                               const at::Tensor& seg_start, int64_t FF) {
+  TORCH_CHECK(A.is_cuda() && A.dim() == 2 && A.size(1) == 18, "point_reduce_sorted: A must be an (O, 18) CUDA tensor");
+  const int64_t O = A.size(0), P = seg_start.numel() - 1;
+  TORCH_CHECK(P >= 1 && FF >= 1 && O < (int64_t(1) << 31), "point_reduce_sorted: P ", P, ", FF ", FF, ", O ", O);
+  expect(A, A, at::kFloat, O * 18, "point_reduce_sorted: A");
+  expect(Vp, A, at::kFloat, O * 12, "point_reduce_sorted: Vp");
+  expect(slot, A, at::kInt, O, "point_reduce_sorted: slot");
+  expect(seg_start, A, at::kInt, P + 1, "point_reduce_sorted: seg_start");
+  const c10::cuda::CUDAGuard guard(A.device());
+  at::Tensor out = at::empty({P, FF * 18 + 12}, A.options());
+  check_launch(urmvo_point_reduce_sorted(A.data_ptr<float>(), Vp.data_ptr<float>(), slot.data_ptr<int>(),
+                                         seg_start.data_ptr<int>(), out.data_ptr<float>(), int(P), int(FF),
+                                         stream_of(A)),
+               "point_reduce_sorted");
+  return out;
+}
+
+// A (O, 18), Vp (O, 12) float32, pt / slot (O,) int32 -> (P, FF*18 + 12)
+// float32 point-side segment sums, by atomics.
+at::Tensor point_reduce(const at::Tensor& A, const at::Tensor& Vp, const at::Tensor& pt, const at::Tensor& slot,
+                        int64_t P, int64_t FF) {
+  TORCH_CHECK(A.is_cuda() && A.dim() == 2 && A.size(1) == 18, "point_reduce: A must be an (O, 18) CUDA tensor");
+  const int64_t O = A.size(0);
+  TORCH_CHECK(P >= 1 && FF >= 1 && O < (int64_t(1) << 31), "point_reduce: P ", P, ", FF ", FF, ", O ", O);
+  expect(A, A, at::kFloat, O * 18, "point_reduce: A");
+  expect(Vp, A, at::kFloat, O * 12, "point_reduce: Vp");
+  expect(pt, A, at::kInt, O, "point_reduce: pt");
+  expect(slot, A, at::kInt, O, "point_reduce: slot");
+  const c10::cuda::CUDAGuard guard(A.device());
+  at::Tensor out = at::empty({P, FF * 18 + 12}, A.options());
+  check_launch(urmvo_point_reduce(A.data_ptr<float>(), Vp.data_ptr<float>(), pt.data_ptr<int>(), slot.data_ptr<int>(),
+                                  out.data_ptr<float>(), int(O), int(P), int(FF), stream_of(A)),
+               "point_reduce");
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -170,4 +214,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sinkhorn", &sinkhorn, "Log-domain Sinkhorn sweeps (csrc/sinkhorn.cu)");
   m.def("pose_gn", &pose_gn, "Pose-only robust Gauss-Newton schedule (csrc/pose_gn.cu)");
   m.def("pose_gn_chain", &pose_gn_chain, "Dependent reduce-and-broadcast chain of pose_gn's width (csrc/pose_gn.cu)");
+  m.def("point_reduce_sorted", &point_reduce_sorted, "BA point-side segment sums over point-sorted rows (csrc/point_reduce.cu)");
+  m.def("point_reduce", &point_reduce, "BA point-side segment sums by atomics (csrc/point_reduce.cu)");
 }

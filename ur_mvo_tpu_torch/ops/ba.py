@@ -10,13 +10,23 @@ verdicts for the map-maintenance pass.
 
 The problem is padded to static shapes (F frames, P points, O
 observations). Per-observation value rows are closed forms; the normal
-equations are assembled by ONE route, float32 segment sums with
-``index_add_`` (it stands where the JAX package's ``"auto"`` picks the
-one-hot matmul at window scale; the ``"pallas"`` and ``"sorted"``
-assemblies belong to the two point-reduce TPU kernels
-``ur_mvo_tpu/ops/pallas_ba.py:38`` and ``:141``, which are not ported
-yet and raise). On CUDA ``index_add_`` adds with atomics, so a BA is
-repeatable run to run only to float32 summation order.
+equations are assembled by one of three routes (:func:`resolve_assembly`):
+
+* ``"scatter"``: float32 segment sums with ``index_add_``. ``"auto"``
+  takes it at window scale, where the JAX package's ``"auto"`` picks its
+  one-hot matmul. On CUDA ``index_add_`` adds with atomics, so a BA is
+  repeatable run to run only to float32 summation order.
+* ``"sorted"``: the observations are sorted by point once per problem and
+  the point side (``U``, ``H_pp``, ``b_p``) is summed by the
+  ``point_reduce_sorted`` kernel (``ops/cuda_ba.py``, the TPU kernel
+  ``ur_mvo_tpu/ops/pallas_ba.py:141``), bf16 summands with float32
+  accumulation, in a fixed order. ``"auto"`` takes it once the one-hot
+  indicator of the matmul route would exceed 128M elements (O x P): a
+  global BA over a long sequence.
+* ``"pallas"``: the same sums in the caller's observation order by the
+  ``point_reduce`` kernel (TPU kernel ``pallas_ba.py:38``), with atomics.
+
+The frame side (``H_cc``, ``b_c``) stays exact float32 on every route.
 
 The LM loop runs its fixed number of iterations with every update masked
 once the phase has converged (the JAX ``while_loop`` stops there; the
@@ -27,10 +37,12 @@ reduced camera system (6 FF)^2 goes through ``torch.linalg.cholesky_ex``.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
+from ur_mvo_tpu_torch.ops import cuda_ba
 from ur_mvo_tpu_torch.ops.lie import mv, se3_exp
 from ur_mvo_tpu_torch.ops.linalg import assert_true_float32_matmul, inv3x3, mm
 
@@ -67,9 +79,9 @@ class BAConfig(NamedTuple):
     iters_phase1: int = 10
     iters_phase2: int = 5
     lm_lambda0: float = 1e-4
-    # normal-equation assembly: "auto" / "scatter" are the float32
-    # index_add_ segment sums; "pallas" and "sorted" name the two TPU
-    # point-reduce kernels, not ported yet (NotImplementedError)
+    # normal-equation assembly: "scatter" (float32 index_add_), "sorted"
+    # (point-sorted segment sums, point_reduce_sorted kernel), "pallas"
+    # (point_reduce kernel, atomics) or "auto" (resolve_assembly)
     assembly: str = "auto"
     # LM convergence: once an ACCEPTED step improves the cost by less than
     # tol (relative) the phase's remaining iterations leave the state as
@@ -215,14 +227,17 @@ def _obs_value_rows(prob: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: BAC
 
 
 def build_normal_terms(prob: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: BAConfig, active, use_huber,
-                       obs_slot=None):
-    """One linearization: all normal-equation blocks by float32 segment
-    sums (``index_add_``).
+                       obs_slot=None, reduce=None):
+    """One linearization: the normal-equation blocks.
 
     ``active``: (O,) weights in {0,1} (validity x inlier classification);
     ``obs_slot``: the loop-invariant free-slot index of every observation
-    (computed here when not given). Returns (H_cc (FF, 6, 6), b_c (FF, 6),
-    H_pp (P, 3, 3), b_p (P, 3), U (P, FF, 6, 3), cost).
+    (computed here when not given). The frame side is an exact float32
+    ``index_add_``. ``reduce``: the point side's reducer, ``(A, Vp,
+    obs_point, obs_slot, P, FF) -> (P, FF*18 + 12)`` (``ops/cuda_ba.py``);
+    None sums it in exact float32 with ``index_add_`` (``"scatter"``).
+    Returns (H_cc (FF, 6, 6), b_c (FF, 6), H_pp (P, 3, 3), b_p (P, 3),
+    U (P, FF, 6, 3), cost).
     """
     P = prob.X.shape[0]
     FF = cfg.max_free_frames
@@ -230,16 +245,84 @@ def build_normal_terms(prob: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: 
         obs_slot = _free_rank(prob, FF)[prob.obs_frame]
     Vc, Vp, A, cost = _obs_value_rows(prob, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg, active, use_huber)
     Hb_c = torch.zeros((FF, 42), dtype=Vc.dtype, device=Vc.device).index_add_(0, obs_slot, Vc)
-    Hb_p = torch.zeros((P, 12), dtype=Vp.dtype, device=Vp.device).index_add_(0, prob.obs_point, Vp)
-    U = torch.zeros((P * FF, 18), dtype=A.dtype, device=A.device).index_add_(0, prob.obs_point * FF + obs_slot, A)
-    return (
-        Hb_c[:, :36].reshape(FF, 6, 6),
-        -Hb_c[:, 36:],
-        Hb_p[:, :9].reshape(P, 3, 3),
-        -Hb_p[:, 9:],
-        U.reshape(P, FF, 6, 3),
-        cost,
+    H_cc, b_c = Hb_c[:, :36].reshape(FF, 6, 6), -Hb_c[:, 36:]
+    if reduce is None:
+        Hb_p = torch.zeros((P, 12), dtype=Vp.dtype, device=Vp.device).index_add_(0, prob.obs_point, Vp)
+        U = torch.zeros((P * FF, 18), dtype=A.dtype, device=A.device).index_add_(0, prob.obs_point * FF + obs_slot, A)
+        return H_cc, b_c, Hb_p[:, :9].reshape(P, 3, 3), -Hb_p[:, 9:], U.reshape(P, FF, 6, 3), cost
+    out = reduce(A, Vp, prob.obs_point, obs_slot, P, FF)
+    H_pp = out[:, FF * 18 : FF * 18 + 9].reshape(P, 3, 3)
+    return H_cc, b_c, H_pp, -out[:, FF * 18 + 9 :], out[:, : FF * 18].reshape(P, FF, 6, 3), cost
+
+
+def build_normal_terms_pallas(prob: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: BAConfig, active, use_huber,
+                              obs_slot=None, plain: bool = False):
+    """The ``"pallas"`` assembly: the point side by the ``point_reduce``
+    kernel over the observations in the caller's order (bf16 summands,
+    float32 accumulation, atomics)."""
+    return build_normal_terms(prob, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg, active, use_huber, obs_slot=obs_slot,
+                              reduce=partial(cuda_ba.point_reduce, plain=plain))
+
+
+class SortedLayout(NamedTuple):
+    """Loop-invariant index structure of the ``"sorted"`` assembly, every
+    observation-indexed tensor in point-sorted order."""
+
+    slot: torch.Tensor  # (O,) free-frame slot of each sorted row
+    seg_start: torch.Tensor  # (P + 1,) rows seg_start[p]:seg_start[p+1] observe point p; invalid rows follow seg_start[P]
+
+
+def permute_observations(prob: BAProblem, order: torch.Tensor) -> BAProblem:
+    return prob._replace(
+        obs_frame=prob.obs_frame[order],
+        obs_point=prob.obs_point[order],
+        obs_uv=prob.obs_uv[order],
+        obs_valid=prob.obs_valid[order],
     )
+
+
+def make_sorted_layout(prob: BAProblem, cfg: BAConfig):
+    """Sort the observations by point (stably, so rows of one point keep
+    the caller's order and the sums their fixed order) and build the CSR
+    ``seg_start`` the kernel reads; once per BA problem. Invalid
+    observations (padding: zero value rows, all on point 0) sort last and
+    belong to no point's rows, so no warp walks them. Returns ``(order,
+    prob_s, layout)``: the permutation, the sorted problem and a
+    :class:`SortedLayout`. The TPU kernel's 512-row window table has no
+    counterpart: it sized VMEM accumulator windows."""
+    P = prob.X.shape[0]
+    key = torch.where(prob.obs_valid, prob.obs_point, torch.full_like(prob.obs_point, P))
+    order = torch.argsort(key, stable=True)
+    prob_s = permute_observations(prob, order)
+    seg_start = torch.searchsorted(key[order], torch.arange(P + 1, dtype=key.dtype, device=key.device))
+    slot = _free_rank(prob, cfg.max_free_frames)[prob_s.obs_frame]
+    return order, prob_s, SortedLayout(slot=slot, seg_start=seg_start)
+
+
+def build_normal_terms_sorted(prob_s: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: BAConfig, active,
+                              use_huber, layout: SortedLayout, plain: bool = False):
+    """The ``"sorted"`` assembly on a point-sorted problem (see
+    :func:`make_sorted_layout`): the point side by the
+    ``point_reduce_sorted`` kernel, each point's rows summed in order
+    (bf16 summands, float32 accumulation)."""
+
+    def reduce(A, Vp, pt, slot, P, FF):
+        return cuda_ba.point_reduce_sorted(A, Vp, pt, slot, layout.seg_start, FF, plain=plain)
+
+    return build_normal_terms(prob_s, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg, active, use_huber,
+                              obs_slot=layout.slot, reduce=reduce)
+
+
+def resolve_assembly(cfg: BAConfig, n_obs: int = 0, n_points: int = 0) -> str:
+    """``"auto"`` -> ``"scatter"`` up to 128M indicator elements (O x P),
+    ``"sorted"`` beyond: the JAX package's threshold, where its one-hot
+    matmul would materialize gigabytes (a global BA at 65k points and 500k
+    observations). Window BA stays far below it. Other values pass."""
+    if cfg.assembly != "auto":
+        return cfg.assembly
+    if n_obs * n_points > 128 * 1024 * 1024:
+        return "sorted"
+    return "scatter"
 
 
 def solve_schur(H_cc, b_c, H_pp, b_p, U, slot_active, point_free, lam):
@@ -297,29 +380,37 @@ def bundle_adjust(
     cy: float,
     bf: float = 0.0,
     cfg: BAConfig = BAConfig(),
+    plain: bool = False,
 ) -> BAResult:
     """Two-phase robust LM bundle adjustment; nothing is read back to the
-    host inside it."""
-    if cfg.assembly in ("pallas", "sorted"):
-        raise NotImplementedError(
-            f"BAConfig.assembly={cfg.assembly!r}: the point-reduce kernels "
-            "(ur_mvo_tpu/ops/pallas_ba.py:38 _reduce_kernel, :141 _sorted_reduce_kernel) are not ported yet"
-        )
-    if cfg.assembly not in ("auto", "scatter"):
-        raise ValueError(f"BAConfig.assembly={cfg.assembly!r}")
+    host inside it. ``plain=True`` runs the point-reduce kernels' plain
+    versions on any device (the on-card comparison); the inlier verdicts
+    come back in the caller's observation order on every route."""
+    assembly = resolve_assembly(cfg, n_obs=prob.obs_frame.shape[0], n_points=prob.X.shape[0])
     FF = cfg.max_free_frames
     frame_free = _effective_free(prob, FF)
     point_free = prob.point_valid
     free_rank = _free_rank(prob, FF)
     slot_active = torch.arange(FF, device=prob.X.device) < torch.sum(frame_free.to(torch.int64))
-    obs_slot = free_rank[prob.obs_frame]
+
+    unsort = None
+    if assembly == "sorted":
+        # the index structure is loop-invariant: sorted once, not per LM step
+        unsort, prob, layout = make_sorted_layout(prob, cfg)
+        builder = partial(build_normal_terms_sorted, layout=layout, plain=plain)
+    elif assembly == "pallas":
+        builder = partial(build_normal_terms_pallas, obs_slot=free_rank[prob.obs_frame], plain=plain)
+    elif assembly == "scatter":
+        builder = partial(build_normal_terms, obs_slot=free_rank[prob.obs_frame])
+    else:
+        raise ValueError(f"BAConfig.assembly={cfg.assembly!r}")
 
     R_cw0, t_cw0 = _invert_poses(prob.R_wc, prob.t_wc)
     geom = (fx, fy, cx, cy, bf)
 
     def lm_phase(state, active, n_iters, use_huber):
         def linearize(R_cw, t_cw, X):
-            return build_normal_terms(prob, R_cw, t_cw, X, *geom, cfg, active, use_huber, obs_slot=obs_slot)[:5]
+            return builder(prob, R_cw, t_cw, X, *geom, cfg, active, use_huber)[:5]
 
         R_cw, t_cw, X = state
         cost = _cost(prob, R_cw, t_cw, X, *geom, cfg, active, use_huber)
@@ -363,6 +454,8 @@ def bundle_adjust(
     # final verdicts
     chi2, is_stereo, depth_pos = _cost_and_gate(prob, *state, *geom)
     inlier = prob.obs_valid & (chi2 <= th) & depth_pos
+    if unsort is not None:
+        inlier = torch.empty_like(inlier).index_put_((unsort,), inlier)
 
     R_cw, t_cw, X = state
     R_wc, t_wc = _invert_poses(R_cw, t_cw)

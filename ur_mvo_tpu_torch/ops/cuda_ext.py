@@ -1,7 +1,7 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels (``csrc/stage_conv.cu``, ``attention.cu``, ``sinkhorn.cu``,
-``pose_gn.cu``, each exporting a plain C launcher) and their binding
+``pose_gn.cu``, ``point_reduce.cu``, each exporting a plain C launcher) and their binding
 (``csrc/bindings.cpp``, the only source that includes PyTorch's headers)
 are one extension, compiled
 for ``sm_90a`` by ``torch.utils.cpp_extension.load`` at first use into
@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ur_mvo_tpu_torch_ext"
-SOURCES = ("bindings.cpp", "stage_conv.cu", "attention.cu", "sinkhorn.cu", "pose_gn.cu")
+SOURCES = ("bindings.cpp", "stage_conv.cu", "attention.cu", "sinkhorn.cu", "pose_gn.cu", "point_reduce.cu")
 # The -gencode flag replaces load's own target flags. The -U flags undo
 # load's -D__CUDA_NO_*__ defaults, so the .cu sources compile as plain nvcc
 # would compile them.

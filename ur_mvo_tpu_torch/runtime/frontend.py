@@ -4,16 +4,18 @@
 Orchestration parity with the reference's ``Tracking``: monocular
 two-view initialization, frame-to-keyframe tracking with a PnP prior and
 pose-only refinement, the tracking-loss fallback that promotes the last
-frame to keyframe, the keyframe policy, and keyframe insertion into the
-mapping backend, which is the only event that emits a pose to the caller
-(non-keyframe frames are interpolated by the engine).
+frame to keyframe, relocalization into the existing map after repeated
+losses (with backoff), the keyframe policy, and keyframe insertion into the
+mapping backend (with loop detection after it), which is the only event
+that emits a pose to the caller (non-keyframe frames are interpolated by
+the engine).
 
 A single-owner host loop queues device work (matching, PnP, pose
 refinement all stay on ``device``) and reads back ONE packed vector a
 frame; decisions (init success, fallback, keyframe) are taken on the host
-from it. Not in this slice, raising if asked for: stereo (``bank_right``),
-RGB-D (``depth_lookup``), local-map tracking, chunked processing, map
-adoption, precomputed matches, relocalization.
+from it. Not ported, raising if asked for: stereo (``bank_right``), RGB-D
+(``depth_lookup``), local-map tracking, chunked processing, map adoption,
+precomputed matches.
 """
 
 from __future__ import annotations
@@ -139,8 +141,6 @@ class Tracker:
                  publisher: Optional[Publisher] = None, device: DeviceLike = None, kernels: bool = True):
         if cfg.local_map_tracking.enabled:
             raise NotImplementedError("local_map_tracking.enabled: local-map tracking is not ported yet")
-        if cfg.backend.relocalization:
-            raise NotImplementedError("backend.relocalization: relocalization is not ported yet")
         if device is None:
             device = getattr(extractor, "device", None)
         self.device = resolve_device(device)
@@ -151,7 +151,7 @@ class Tracker:
         self.timer = StageTimer()
         self.backend = backend or Backend(
             camera, cfg.backend, cfg.backend_optimization,
-            keypoints_per_frame=cfg.superpoint.capacity, device=self.device,
+            keypoints_per_frame=cfg.superpoint.capacity, device=self.device, kernels=kernels,
         )
         self.K_mat = torch.as_tensor(np.asarray(camera.intrinsic_matrix(), np.float32), device=self.device)
         self._plain = not kernels
@@ -181,6 +181,9 @@ class Tracker:
         self._last_track_well = False
         self._num_since_last_keyframe = 0
         self._frames_lost = 0  # all frames that could not be tracked
+        self._relocalizations = 0
+        self._lost_count = 0  # consecutive lost frames (relocalization)
+        self._reloc_next_attempt = 0  # failed-relocalization backoff (_handle_lost)
 
         # reference keyframe state
         self._ref_slot = None
@@ -688,12 +691,15 @@ class Tracker:
         scores = arr[3 * K + K * D :]
         return kpts, valid, desc, scores
 
-    def _insert_keyframe(self, bank, uvr, pose, frame_track, timestamp, frame_id, set_ref=True):
+    def _insert_keyframe(self, bank, uvr, pose, frame_track, timestamp, frame_id, set_ref=True, materialized=None):
+        """Insert a keyframe, then look for a loop from it.
+        ``materialized``: the bank's ``(kpts, valid, desc, scores)`` when
+        the caller already read it back (relocalization)."""
         st = self.backend.store
         if frame_id in st.frame_id_to_slot:
             return None
         K = bank.capacity
-        kpts, valid, desc_h, scores_h = self._materialize_bank(bank)
+        kpts, valid, desc_h, scores_h = materialized if materialized is not None else self._materialize_bank(bank)
         if uvr is None:
             uvr = np.concatenate([kpts, -np.ones((K, 1), np.float32)], axis=1)
         track = frame_track if frame_track is not None else np.full(K, -1, np.int32)
@@ -702,6 +708,9 @@ class Tracker:
                 frame_id, timestamp, pose[:3, :3], pose[:3, 3], uvr, valid, track, None,
                 desc=desc_h, scores=scores_h,
             )
+        if self.cfg.backend.loop_closure:
+            with self.timer.span("loop_detect"):
+                self.backend.detect_loop(slot, desc_h, kpts, valid)
         opt_pose = np.eye(4, dtype=np.float32)
         opt_pose[:3, :3] = R_opt
         opt_pose[:3, 3] = t_opt
@@ -727,13 +736,51 @@ class Tracker:
         self._last_frame_id = frame_id
         self._last_track_well = track_well
         self._num_since_last_keyframe += 1
+        if track_well:
+            self._lost_count = 0
+            self._reloc_next_attempt = 0
 
     def _handle_lost(self, bank, timestamp, frame_id, uvr=None):
-        """Shared tail of a frame that could not be tracked (the
-        relocalization attempt that belongs here is not ported yet)."""
+        """Shared tail of a frame that could not be tracked: after
+        ``reloc_after_failures`` consecutive losses, try to re-anchor into
+        the existing map (``backend.relocalization``). A FAILED attempt
+        backs off for another ``reloc_after_failures`` losses: where
+        tracking flickers, an attempt on every lost frame would dominate
+        the frame time. A relocalized frame counts as tracked."""
+        self._lost_count += 1
+        bcfg = self.cfg.backend
+        if (bcfg.relocalization and self._initialized
+                and self._lost_count >= bcfg.reloc_after_failures
+                and self._lost_count >= self._reloc_next_attempt):
+            out = self._relocalize(bank, timestamp, frame_id, uvr=uvr)
+            if out is not None:
+                self._lost_count = 0
+                self._reloc_next_attempt = 0
+                return out
+            self._reloc_next_attempt = self._lost_count + bcfg.reloc_after_failures
         self._frames_lost += 1
         self._after_track(bank, None, timestamp, frame_id, track_well=False, uvr=uvr)
         return None
+
+    def _relocalize(self, bank, timestamp, frame_id, uvr=None):
+        """Recover from tracking loss by re-anchoring into the existing map
+        (``Backend.relocalize``): the current frame enters as a keyframe
+        observing the verified mappoints and becomes the new reference, so
+        trajectory and map stay in ONE world frame."""
+        with self.timer.span("relocalize"):
+            mat = self._materialize_bank(bank)
+            kpts, valid, desc_h, _ = mat
+            res = self.backend.relocalize(desc_h, kpts, valid)
+        if res is None:
+            return None
+        self._relocalizations += 1
+        pose, frame_track, _ = res
+        pose_out = self._insert_keyframe(bank, uvr, pose, frame_track, timestamp, frame_id, set_ref=True,
+                                         materialized=mat)
+        final = pose_out if pose_out is not None else pose
+        self._publish_tracked(final, timestamp, pose_out is not None)
+        self._after_track(bank, final, timestamp, frame_id, track_well=True, track=frame_track, uvr=uvr)
+        return pose_out
 
     # ------------------------------------------------------------------
 
@@ -743,8 +790,14 @@ class Tracker:
 
     @property
     def frames_lost(self) -> int:
-        """Frames since the last reset that could not be tracked."""
+        """Frames since the last reset that could not be tracked (a
+        relocalized frame counts as tracked)."""
         return self._frames_lost
+
+    @property
+    def relocalizations(self) -> int:
+        """Frames since the last reset re-anchored by relocalization."""
+        return self._relocalizations
 
     def current_pose(self) -> np.ndarray:
         return self._last_pose.copy()

@@ -150,6 +150,26 @@ def default_trajectory(n_frames: int, advance: float = 0.08) -> np.ndarray:
     return poses
 
 
+def out_and_back_trajectory(n_frames: int, advance: float = 0.08) -> np.ndarray:
+    """Loop-bearing path: forward leg, smooth turnaround, return to the
+    start viewpoint at the same heading — the long-sequence proxy of the
+    accuracy protocol (``T_wc`` (N, 4, 4)). The sin() position profile keeps
+    per-frame motion <= ``advance`` while the end frame re-observes the
+    start frame's view, so loop closure and relocalization have a genuine
+    revisit to fire on."""
+    x_max = advance * (n_frames - 1) / np.pi
+    poses = np.zeros((n_frames, 4, 4))
+    for i in range(n_frames):
+        s = np.pi * i / (n_frames - 1)
+        yaw = 0.03 * np.sin(0.3 * i)
+        R = so3_exp(np.array([0.0, yaw, 0.015 * np.sin(0.2 * i)]))
+        t = np.array([x_max * np.sin(s), 0.04 * np.sin(0.3 * i), 0.02 * np.sin(0.17 * i)])
+        poses[i, :3, :3] = R
+        poses[i, :3, 3] = t
+        poses[i, 3, 3] = 1.0
+    return poses
+
+
 def render_sequence(
     n_frames: int,
     H: int = 240,

@@ -52,7 +52,7 @@ def superglue_from_numpy(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    t = torch.from_numpy(np.array(a))  # a writable copy (JAX hands out read-only buffers)
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
@@ -98,3 +98,38 @@ def ba_problem_from_numpy(prob, device="cpu"):
         obs_frame=_tensor(obs_frame, device, i64), obs_point=_tensor(obs_point, device, i64),
         obs_uv=_tensor(obs_uv, device, f32), obs_valid=_tensor(obs_valid, device, b),
     )
+
+
+def pose_graph_from_numpy(g, device="cpu"):
+    """The nine fields of a ``PoseGraph`` -> ``ops.pose_graph.PoseGraph``."""
+    from ur_mvo_tpu_torch.ops.pose_graph import PoseGraph
+
+    R_wc, t_wc, node_valid, node_fixed, edge_i, edge_j, R_ij, t_ij, edge_weight = g
+    f32, b, i64 = torch.float32, torch.bool, torch.int64
+    return PoseGraph(
+        R_wc=_tensor(R_wc, device, f32), t_wc=_tensor(t_wc, device, f32),
+        node_valid=_tensor(node_valid, device, b), node_fixed=_tensor(node_fixed, device, b),
+        edge_i=_tensor(edge_i, device, i64), edge_j=_tensor(edge_j, device, i64),
+        R_ij=_tensor(R_ij, device, f32), t_ij=_tensor(t_ij, device, f32),
+        edge_weight=_tensor(edge_weight, device, f32),
+    )
+
+
+def map_store_from(src):
+    """A copy of a JAX ``MapStore`` (numpy on the host there too) as the
+    port's ``runtime.map_store.MapStore``: every array, the per-keyframe
+    descriptor and score banks, the loop edges, the insertion-time
+    snapshots (``kf_snap_*``) and the allocation state, so both packages
+    can run the same backend call on the same map."""
+    import copy
+
+    from ur_mvo_tpu_torch.runtime.map_store import MapStore, StoreConfig
+
+    c = src.cfg
+    st = MapStore(StoreConfig(max_keyframes=c.max_keyframes, max_mappoints=c.max_mappoints,
+                              keypoints_per_frame=c.keypoints_per_frame, store_descriptors=c.store_descriptors,
+                              descriptor_dim=c.descriptor_dim))
+    for name, value in vars(src).items():
+        if name != "cfg":
+            setattr(st, name, copy.deepcopy(value))
+    return st
