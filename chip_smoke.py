@@ -19,9 +19,14 @@ layers, bf16 compute. Phases, each printing one JSON line:
 2. build: time to compile the kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes, in bf16 and float32 (max error beside its bound; for
-   attention also the errors of a swapped mask and of a dropped key tile,
-   which must exceed it); Sinkhorn's time also beside the time the card
-   takes to read its matrix once per half-sweep from L2; its
+   attention, the main path's bf16 kernel and the key-group kernel beside
+   it, also ragged query and key counts and the errors of a swapped mask,
+   of a dropped first key tile, of a dropped last step and of a dropped last
+   key group, which must exceed the bound; two launches bit for bit equal;
+   no other kernel in its wrapper calls; blocks per SM and registers per
+   thread; its time over SDPA's; the main path's output bits as
+   ``ATTENTION_DIGEST`` records them); Sinkhorn's time also beside
+   the time the card takes to read its matrix once per half-sweep from L2; its
    device time per launch from ``torch.profiler`` beside the plain version's
    and, where one exists, a PyTorch library call's, the wall time of a
    wrapper call, and the least time the card could take (``bound_ms``).
@@ -41,7 +46,8 @@ layers, bf16 compute. Phases, each printing one JSON line:
    F-RANSAC), and of the match's parts (SuperGlue scores, RANSAC), on the
    kernel path and on the plain path; then the device's busy and idle share
    of a frame step (extract + match) and its largest kernels, from
-   ``torch.profiler``;
+   ``torch.profiler``, and the kernels that run right before a match's
+   attention kernels (no mask cast may be among them);
 7. ba: one window-sized bundle adjustment on the card against the same
    problem on the CPU (to a tolerance: ``index_add_`` adds with atomics);
 8. engine: ``UR_MVO(cfg, device="cuda")`` with the production mono
@@ -104,6 +110,14 @@ pose-GN kernel and stops: the short first run after an edit to it.
 engine N times on each of those scenes (and once on the plain versions),
 printing each run's keyframes, frames lost and ATE: the spread from one run
 to the next.
+``--long-seeds 11,12,...,20 [--plain]`` runs the long protocol on those
+scenes, on the kernels or on their plain versions, printing each run's
+online and after-``global_optimize`` ATE: the seed-to-seed spread behind
+the long gate; ``--attention kernel|split|plain`` routes only the matcher's
+attention (the main path's kernel, the key-group kernel, the plain
+version), and ``--audit`` holds both bf16 attention kernels against the
+plain version on every attention call of those runs, a line per layer.
+``--only-attention`` builds and runs the attention checks of phase 3.
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
 ``--ptxas`` prints registers and shared memory per kernel.
@@ -182,6 +196,11 @@ SPACING = 0.2
 PALLAS_X = 5e-2
 # phase 9's long map: scene points, features observed a keyframe
 LONG_MAP = (14000, 1000)
+# sha256 of attention_digest(): the main path's bf16 attention outputs as the
+# tile-by-tile kernel of commit b873c7a gives them. The long protocol's gate
+# was set on those bits, and a change of them moves its 3-seed mean by up
+# to ~0.2 (PERF.md, section 6), so the main path keeps them.
+ATTENTION_DIGEST = "f1cc34280e833d06d15dd221a3f368967b379bcfbee5cae34c2977e98df135bf"
 
 
 
@@ -234,6 +253,22 @@ def profile_device(fn, calls: int):
         elif e.device_type == DeviceType.CPU:
             host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
     return device, host, wall
+
+
+def device_kernels(fn):
+    """Names of the device records of a call of ``fn`` under the profiler
+    (after a warm-up call), in the order they started."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in sorted(records, key=lambda e: e.time_range.start)]
 
 
 def device_ms(fn, names=None, calls: int = 20, exclude=()):
@@ -312,6 +347,140 @@ def front_end_config(Configs, width=W, height=H):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def attention_digest():
+    """sha256 of the main path's bf16 attention outputs on fixed inputs
+    (numpy, seed 7): the main shape with flat and with peaked logits, a bank
+    with no valid key and ragged key counts."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_kernels
+
+    rng = np.random.RandomState(7)
+    digest = hashlib.sha256()
+    for Kq, Kkv, counts, q_scale in ((1024, 1024, (1000, 937), 1.0), (1024, 1024, (1000, 937), 4.0),
+                                     (1024, 1024, (0, 0), 1.0), (1000, 777, (700, 777), 1.0),
+                                     (200, 130, (130, 77), 1.0)):
+        q = q_scale * rng.standard_normal((2, Kq, 4, 64))
+        k, v = (rng.standard_normal((2, Kkv, 4, 64)) for _ in range(2))
+        q, k, v = (torch.from_numpy(a.astype(np.float32)).cuda().to(torch.bfloat16) for a in (q, k, v))
+        valid = (np.arange(Kkv)[None] < np.asarray(counts)[:, None])
+        out = cuda_kernels.attention(q, k, v, torch.from_numpy(valid).cuda())
+        digest.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def attention_phase(gen):
+    """The bf16 attention kernels (the main path's, and the key-group kernel
+    beside it) and the float32 one against the plain version on the card:
+    the main path's shape (B=2, H=4, K=1024, d=64, banks with different
+    valid counts, so a kernel that read the other batch item's mask would
+    disagree), a bank with no valid key, ragged query and key counts
+    (Kkv=130 leaves the main path's last step with a tile past the end and
+    the key-group kernel's first group with no key) and float32. Bound:
+    2^-6 of max |out| in bf16, about two bf16 ulps of the largest output
+    (probabilities and outputs round to bf16 at different points in the
+    versions); 2e-5 in float32, the JAX package's. At the main shape four
+    controls must miss the bound (the plain version with the batch items'
+    masks swapped, with the first 64 keys masked, with the last 128 keys
+    masked, with the last key group's 256 keys masked: a kernel that dropped
+    its first tile, its last step or a group), two launches of each kernel
+    must agree bit for bit and wrapper calls must run the kernel and nothing
+    else (no mask cast); the main path's outputs must be those of
+    ``ATTENTION_DIGEST``; then the times, beside SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from ur_mvo_tpu_torch.ops import cuda_ext, cuda_kernels
+
+    dev = torch.device("cuda")
+    Bb, Hh, d = 2, 4, 64
+    main = None
+    cases = ((torch.bfloat16, 1024, 1024, (1000, 937)), (torch.bfloat16, 1024, 1024, (0, 0)),
+             (torch.bfloat16, 1000, 777, (700, 777)), (torch.bfloat16, 200, 130, (130, 77)),
+             (torch.float32, 1024, 1024, (1000, 937)))
+    for dtype, Kq, Kkv, counts in cases:
+        q = torch.randn((Bb, Kq, Hh, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((Bb, Kkv, Hh, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+        valid = torch.arange(Kkv, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
+        ref = cuda_kernels.attention_plain(q, k, v, valid)
+        tol = 2e-5 if dtype == torch.float32 else 2.0**-6 * ref.float().abs().max().item()
+        bf16 = dtype == torch.bfloat16
+        routes = {"attention": False, "attention_split": True} if bf16 else {"attention": False}
+        row = {"dtype": str(dtype).split(".")[-1], "Kq": Kq, "Kkv": Kkv, "valid": list(counts), "tol": tol}
+        for name, split in routes.items():
+            out = cuda_kernels.attention(q, k, v, valid, split=split)
+            torch.cuda.synchronize()
+            r = {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                 "finite": bool(torch.isfinite(out).all())}
+            if not (r["max_abs_err"] <= tol and r["finite"]):
+                emit({"phase": "kernels", "kernel": "attention", **row, name: r})
+                raise AssertionError(f"{name} {row['dtype']} Kq={Kq} Kkv={Kkv} valid={counts}: max |err| "
+                                     f"{r['max_abs_err']} > {tol} (or not finite)")
+            if bf16 and Kkv == 1024 and counts[0]:
+                kname = "attention_split_kernel" if split else "attention_mma_kernel"
+                r["bitwise_repeat"] = bool(torch.equal(out, cuda_kernels.attention(q, k, v, valid, split=split)))
+                # the profiler may drop records of a short window: count what it kept
+                names = device_kernels(lambda: [cuda_kernels.attention(q, k, v, valid, split=split) for _ in range(20)])
+                r["kernels_in_20_calls"] = sum(kname in n for n in names)
+                r["other_kernels_in_20_calls"] = len(names) - r["kernels_in_20_calls"]
+                if split:  # the main path's kernel is timed below, beside its plain version and SDPA
+                    r["ms"] = device_ms(lambda: cuda_kernels.attention(q, k, v, valid, split=True), (kname,))[0]
+                r.update(cuda_ext.extension().attention_occupancy(Kkv, split))
+            if split:
+                row["split"] = r
+            else:
+                row.update(r)
+        if not bf16:
+            row["ms"] = device_ms(lambda: cuda_kernels.attention(q, k, v, valid), ("attention_fma_kernel",))[0]
+        if bf16 and Kkv == 1024 and counts[0]:
+            def control(mask):
+                return (cuda_kernels.attention_plain(q, k, v, mask).float() - ref.float()).abs().max().item()
+
+            first, last, group = valid.clone(), valid.clone(), valid.clone()
+            first[:, :64] = False
+            last[:, -128:] = False
+            group[:, -Kkv // 4:] = False
+            row.update({"wrong_mask_err": control(valid.flip(0)), "dropped_tile_err": control(first),
+                        "dropped_last_step_err": control(last), "dropped_last_group_err": control(group)})
+            mask = torch.where(valid, 0.0, -1e9).to(dtype)[:, None, None, :]
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            flops = 4.0 * Bb * Hh * Kq * Kkv * d
+            nbytes = 2.0 * (2 * Bb * Kq * Hh * d + 2 * Bb * Kkv * Hh * d) + Bb * Kkv
+            b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+            row.update({
+                **timings(lambda: cuda_kernels.attention(q, k, v, valid), ("attention_mma_kernel",),
+                          lambda: cuda_kernels.attention_plain(q, k, v, valid),
+                          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)),
+                # the wrapper as it was: a uint8 cast of the mask before each launch
+                "wall_ms_with_mask_cast": time_ms(lambda: cuda_kernels.attention(q, k, v, valid.to(torch.uint8))),
+                "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            })
+            row["ratio_to_library"] = row["ms"] / row["library_ms"]
+            row["split"]["ratio_to_library"] = row["split"]["ms"] / row["library_ms"]
+            row["split"]["ratio_to_main_path"] = row["split"]["ms"] / row["ms"]
+            row["digest"] = attention_digest()
+            main = dict(row)
+        emit({"phase": "kernels", "kernel": "attention", **row})
+    controls = {c: main[c] for c in ("wrong_mask_err", "dropped_tile_err", "dropped_last_step_err",
+                                     "dropped_last_group_err")}
+    if not min(controls.values()) > main["tol"]:
+        raise AssertionError(f"attention: tolerance {main['tol']} does not tell a wrong mask, a dropped first tile, "
+                             f"a dropped last step or a dropped key group from the right result: {controls}")
+    for name, r in (("attention", main), ("attention_split", main["split"])):
+        if not r["bitwise_repeat"]:
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        if r["other_kernels_in_20_calls"] or not r["kernels_in_20_calls"]:
+            raise AssertionError(f"{name}: 20 wrapper calls ran {r['kernels_in_20_calls']} of its kernels and "
+                                 f"{r['other_kernels_in_20_calls']} others")
+    if main["digest"] != ATTENTION_DIGEST:
+        raise AssertionError(f"attention: the main path's outputs changed bits (digest {main['digest']}, expected "
+                             f"{ATTENTION_DIGEST}); the long protocol's gate was set on those bits")
+    return main
+
+
 def kernel_phase(images):
     import torch
     import torch.nn.functional as F
@@ -389,52 +558,10 @@ def kernel_phase(images):
     # one kernel serves stages 2 and 3: per-launch figures are the mean of the two
     rows["stage_conv"] = mean_row(stage_rows[1:])
 
-    # --- attention at B=2, H=4, K=1024, d=64 ------------------------------
-    # The two banks of a pair hold different valid counts, so a kernel that
-    # read the other batch item's mask (cross-attention passes the other
-    # bank's validity) would disagree; (0, 0) is a bank with no valid key.
-    B, K, Hh, d = 2, 1024, 4, 64
-    for dtype, counts in ((torch.bfloat16, (1000, 937)), (torch.bfloat16, (0, 0)), (torch.float32, (1000, 937))):
-        q, k, v = (torch.randn((B, K, Hh, d), generator=gen, device=dev).to(dtype) for _ in range(3))
-        valid = torch.arange(K, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
-        out = cuda_kernels.attention(q, k, v, valid)
-        ref = cuda_kernels.attention_plain(q, k, v, valid)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # f32: the JAX package's bound; bf16: 2^-6 of max |out|, about two bf16
-        # ulps of the largest output (probabilities and outputs round to bf16
-        # at different points in the two versions)
-        tol = 2e-5 if dtype == torch.float32 else 2.0**-6 * ref.float().abs().max().item()
-        row = {"dtype": str(dtype).split(".")[-1], "valid": list(counts), "max_abs_err": err, "tol": tol}
-        if dtype == torch.float32:
-            row["ms"] = device_ms(lambda: cuda_kernels.attention(q, k, v, valid), ("attention_fma_kernel",))[0]
-        if dtype == torch.bfloat16 and counts[0]:
-            # the check can fail: the plain version with the batch items'
-            # masks swapped, or with the first 64-key tile dropped, must
-            # each miss the tolerance
-            dropped = valid.clone()
-            dropped[:, :64] = False
-            row["wrong_mask_err"] = (cuda_kernels.attention_plain(q, k, v, valid.flip(0)).float() - ref.float()).abs().max().item()
-            row["dropped_tile_err"] = (cuda_kernels.attention_plain(q, k, v, dropped).float() - ref.float()).abs().max().item()
-            mask = torch.where(valid, 0.0, -1e9).to(dtype)[:, None, None, :]
-            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            flops = 4.0 * B * Hh * K * K * d
-            nbytes = 2.0 * 4 * B * K * Hh * d + B * K
-            b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
-            row.update({
-                **timings(lambda: cuda_kernels.attention(q, k, v, valid), ("attention_mma_kernel",),
-                          lambda: cuda_kernels.attention_plain(q, k, v, valid),
-                          lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)),
-                "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-            })
-            rows["attention"] = dict(row)
-        emit({"phase": "kernels", "kernel": "attention", **row})
-        if not err <= tol:
-            raise AssertionError(f"attention {row['dtype']} valid={counts}: max |err| {err} > {tol}")
-        if "wrong_mask_err" in row and not min(row["wrong_mask_err"], row["dropped_tile_err"]) > tol:
-            raise AssertionError(f"attention: tolerance {tol} does not tell a wrong mask or a dropped tile from the right result")
+    rows["attention"] = attention_phase(gen)
 
     # --- Sinkhorn at 1025 x 1025 ------------------------------------------
+    K = 1024
     sink_errs = []
     for n0, n1 in ((1000, 1000), (950, 1000)):
         scores = 3.0 * torch.randn((K, K), generator=gen, device=dev)
@@ -823,6 +950,155 @@ def long_map_global_optimize(smi, template):
     return launches["kernels"], tuple(full["padded"])
 
 
+def long_scene(seed):
+    """The long protocol's frames and true poses for one scene seed."""
+    from ur_mvo_tpu_torch.components import Frame, Image
+    from ur_mvo_tpu_torch.utils.synthscene import out_and_back_trajectory, render_sequence
+
+    images, T_wc, _ = render_sequence(LONG_FRAMES, LONG_H, LONG_W, LONG_FX, seed=seed, n_planes=3,
+                                      z_background=6.0, poses=out_and_back_trajectory(LONG_FRAMES))
+    return [Frame(image=Image(images[i], i / FPS)) for i in range(LONG_FRAMES)], T_wc
+
+
+def long_run(vo, seed, scene):
+    """One long-protocol run: the online ATE of the emitted trajectory, then
+    ``global_optimize()`` and the ATE of the keyframe trajectory after it."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+
+    frames, T_wc = scene
+    backend = vo.tracker.backend
+    vo.reset()
+    vo.tracker.timer.reset()
+    t0 = time.perf_counter()
+    per_frame, stamps, poses, init_at = run_engine(vo, frames)
+    online_s = time.perf_counter() - t0
+    online = emitted_ate(stamps, poses, T_wc)
+    st = backend.store
+    row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": st.num_keyframes(),
+           "loop_edges": len(st.loop_edges), "relocalizations": vo.tracker.relocalizations,
+           "frames_lost": vo.tracker.frames_lost, "poses_emitted": len(poses), "online_ate": online,
+           "online_seconds": online_s,
+           "stages": {k: {"count": v["count"], "mean_ms": v["mean_ms"]} for k, v in vo.tracker.timer.summary().items()}}
+    backend.timer.reset()
+    backend.last_full_ba = None
+    t0 = time.perf_counter()
+    backend.global_optimize()
+    torch.cuda.synchronize()
+    row["global_optimize_seconds"] = time.perf_counter() - t0
+    row["global_optimize_parts_s"] = {k: v["total_s"] for k, v in backend.timer.summary().items()}
+    row["full_ba"] = backend.last_full_ba
+    kts, kpos, _ = vo.keyframe_trajectory()
+    kidx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, LONG_FRAMES - 1)
+    row["pgo_ate"] = float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True, correct_scale=True))
+    return row
+
+
+def route_attention(how):
+    """Points the matcher's attention at one bf16 route for a long sweep:
+    ``"kernel"`` the main path's kernel (as it is), ``"split"`` the key-group
+    kernel, ``"plain"`` the plain version, every other kernel on."""
+    import functools
+
+    from ur_mvo_tpu_torch.models import superglue
+    from ur_mvo_tpu_torch.ops import cuda_kernels
+
+    superglue.attention = {
+        "kernel": cuda_kernels.attention,
+        "split": functools.partial(cuda_kernels.attention, split=True),
+        "plain": lambda q, k, v, kv_valid, plain=False: cuda_kernels.attention_plain(q, k, v, kv_valid),
+    }[how]
+
+
+def audit_attention(records):
+    """Wraps the matcher's attention as routed: each call also runs the plain
+    version and both bf16 kernels on the same inputs and appends to
+    ``records`` the call's layer (0-17), bank sizes and valid counts, the
+    largest valid logit, and per kernel its largest error over the phase-3
+    bound (2^-6 max |plain|), the share of its outputs whose bits differ
+    from the plain version's and its mean signed error over mean |plain|;
+    and whether two launches of the key-group kernel agree bit for bit."""
+    import math
+
+    import torch
+
+    from ur_mvo_tpu_torch.models import superglue
+    from ur_mvo_tpu_torch.ops import cuda_kernels
+
+    routed = superglue.attention
+
+    def audited(q, k, v, kv_valid, plain=False):
+        out = routed(q, k, v, kv_valid, plain=plain)
+        ref = cuda_kernels.attention_plain(q, k, v, kv_valid).float()
+        split = cuda_kernels.attention(q, k, v, kv_valid, split=True)
+        scale = ref.abs()
+        stats = [scale.max(), (split != cuda_kernels.attention(q, k, v, kv_valid, split=True)).any()]
+        for o in (cuda_kernels.attention(q, k, v, kv_valid), split):
+            diff = o.float() - ref
+            stats += [diff.abs().max(), (diff != 0).float().mean(), diff.mean() / scale.mean()]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+        stats.append(logits.masked_fill(~kv_valid[:, None, None, :], -math.inf).amax())
+        vals = torch.stack([x.float() for x in stats]).tolist()
+        tol = 2.0**-6 * vals[0]
+        records.append({
+            "layer": len(records) % 18, "Kq": q.shape[1], "Kkv": k.shape[1], "valid": kv_valid.sum(1).tolist(),
+            "split_repeat_differs": bool(vals[1]), "logit_max": vals[-1],
+            "kernel": [vals[2] / tol, vals[3], vals[4]], "split": [vals[5] / tol, vals[6], vals[7]],
+        })
+        return out
+
+    superglue.attention = audited
+
+
+def summarize_audit(records, seed):
+    """One line per layer of ``audit_attention``'s records of a run."""
+    for layer in range(18):
+        rs = [r for r in records if r["layer"] == layer]
+        if not rs:
+            continue
+        row = {"phase": "attention_audit", "seed": seed, "layer": layer, "calls": len(rs),
+               "shapes": sorted({(r["Kq"], r["Kkv"]) for r in rs}),
+               "min_valid": min(min(r["valid"]) for r in rs),
+               "calls_with_an_empty_bank": sum(min(r["valid"]) == 0 for r in rs),
+               "logit_max": max(r["logit_max"] for r in rs),
+               "split_repeat_differs": sum(r["split_repeat_differs"] for r in rs)}
+        for name in ("kernel", "split"):
+            row[name] = {"max_err_over_tol": max(r[name][0] for r in rs),
+                         "mean_share_off": statistics.mean(r[name][1] for r in rs),
+                         "mean_bias": statistics.mean(r[name][2] for r in rs),
+                         "max_abs_bias": max(abs(r[name][2]) for r in rs)}
+        emit(row)
+
+
+def long_sweep(seeds, plain=False, attention="kernel", audit=False):
+    """The long protocol on more scene seeds than the gate's three, under
+    deterministic algorithms, on the kernels (or, ``plain``, every kernel's
+    plain version): the spread of its online and after-global_optimize ATE
+    from seed to seed, which a gate on a 3-seed mean has to stand.
+    ``attention`` routes the matcher's attention (:func:`route_attention`);
+    ``audit`` also holds both bf16 kernels against the plain version on every
+    attention call of the run (:func:`audit_attention`)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    vo = production_engine(kernels=not plain, long_run=True)
+    route_attention(attention)
+    records = []
+    if audit:
+        audit_attention(records)
+    for seed in seeds:
+        records.clear()
+        row = long_run(vo, seed, long_scene(seed))
+        emit({"phase": "long_sweep", "path": "plain" if plain else "kernels", "attention": attention,
+              **{k: row[k] for k in ("seed", "online_ate", "pgo_ate", "frames_lost", "loop_edges", "keyframes")}})
+        if audit:
+            summarize_audit(records, seed)
+    route_attention("kernel")
+    vo.shutdown()
+
+
 def long_phase(smi):
     """``scripts/bench_accuracy.py --long`` for ``mono/long`` with matcher
     ``sg``: per seed the online ATE of the emitted trajectory, then
@@ -835,21 +1111,12 @@ def long_phase(smi):
     the line (:func:`long_map_global_optimize`), which must launch the
     sorted kernel. Returns the launch counts (the sorted kernel's from that
     map) and that full BA's shape (P, O, FF)."""
-    import numpy as np
     import torch
 
-    from ur_mvo_tpu_torch.components import Frame, Image
     from ur_mvo_tpu_torch.ops import cuda_ext
-    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
-    from ur_mvo_tpu_torch.utils.synthscene import out_and_back_trajectory, render_sequence
 
     torch.use_deterministic_algorithms(True, warn_only=True)
-    poses_long = out_and_back_trajectory(LONG_FRAMES)
-    scenes = {}
-    for seed in ENGINE_SEEDS:
-        images, T_wc, _ = render_sequence(LONG_FRAMES, LONG_H, LONG_W, LONG_FX, seed=seed, n_planes=3,
-                                          z_background=6.0, poses=poses_long)
-        scenes[seed] = ([Frame(image=Image(images[i], i / FPS)) for i in range(LONG_FRAMES)], T_wc)
+    scenes = {seed: long_scene(seed) for seed in ENGINE_SEEDS}
     vo = production_engine(long_run=True)
     backend = vo.tracker.backend
 
@@ -857,30 +1124,7 @@ def long_phase(smi):
     cuda_ext.LAUNCHES.clear()
     rows = []
     for seed in ENGINE_SEEDS:
-        frames, T_wc = scenes[seed]
-        vo.reset()
-        vo.tracker.timer.reset()
-        t0 = time.perf_counter()
-        per_frame, stamps, poses, init_at = run_engine(vo, frames)
-        online_s = time.perf_counter() - t0
-        online = emitted_ate(stamps, poses, T_wc)
-        st = backend.store
-        row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": st.num_keyframes(),
-               "loop_edges": len(st.loop_edges), "relocalizations": vo.tracker.relocalizations,
-               "frames_lost": vo.tracker.frames_lost, "poses_emitted": len(poses), "online_ate": online,
-               "online_seconds": online_s,
-               "stages": {k: {"count": v["count"], "mean_ms": v["mean_ms"]} for k, v in vo.tracker.timer.summary().items()}}
-        backend.timer.reset()
-        backend.last_full_ba = None
-        t0 = time.perf_counter()
-        backend.global_optimize()
-        torch.cuda.synchronize()
-        row["global_optimize_seconds"] = time.perf_counter() - t0
-        row["global_optimize_parts_s"] = {k: v["total_s"] for k, v in backend.timer.summary().items()}
-        row["full_ba"] = backend.last_full_ba
-        kts, kpos, _ = vo.keyframe_trajectory()
-        kidx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, LONG_FRAMES - 1)
-        row["pgo_ate"] = float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True, correct_scale=True))
+        row = long_run(vo, seed, scenes[seed])
         rows.append(row)
         emit({"phase": "long", **row})
     launches = dict(cuda_ext.LAUNCHES)
@@ -1190,6 +1434,24 @@ def frontend_phases(images, smi):
               "device_launches": host.pop("device records", 0) / steps, "distinct_kernels": len(dev),
               "top_kernels": [[k[:70], v / 1e3 / steps] for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6]],
               "top_host_ops": [[k[:50], v / 1e3 / steps] for k, v in sorted(host.items(), key=lambda kv: -kv[1])[:8]]})
+
+    # the device kernel before each attention launch of three matches: the
+    # wrapper passes the bool mask as it is, so the kernel of a bool -> uint8
+    # cast (profiled on its own here) must precede none (the profiler may
+    # drop records of a short window, so the counts are of what it kept)
+    cast = set(device_kernels(lambda: [banks[0].valid.to(torch.uint8) for _ in range(20)]))
+    cuda_ext.LAUNCHES.clear()
+    names = device_kernels(lambda: [ext.match(banks[0], banks[1]) for _ in range(3)])
+    n_calls = cuda_ext.LAUNCHES["attention"] // 2  # the warm-up matches and the profiled ones
+    n_kernels = sum("attention_mma_kernel" in n for n in names)
+    before = [names[i - 1] for i, n in enumerate(names) if "attention_mma_kernel" in n and i > 0]
+    casts = sum(n in cast for n in before)
+    emit({"phase": "device_share", "what": "match_attention", "attention_calls": n_calls,
+          "attention_kernels": n_kernels, "cast_kernel": [c[:70] for c in cast],
+          "before_attention": {k[:70]: before.count(k) for k in set(before)}, "casts_before_attention": casts})
+    if not cast or casts or not n_kernels:
+        raise AssertionError(f"a match's attention kernels: {n_kernels} of {n_calls} calls recorded, cast kernel "
+                             f"{cast}, {casts} casts right before one")
     return launches
 
 
@@ -1519,6 +1781,21 @@ def main() -> int:
             torch.use_deterministic_algorithms(True, warn_only=True)
         engine_sweep([int(x) for x in sys.argv[sys.argv.index("--engine-seeds") + 1].split(",")],
                      repeats=int(sys.argv[sys.argv.index("--repeats") + 1]) if "--repeats" in sys.argv else 2)
+        print(smi, flush=True)
+        return 0
+    if "--long-seeds" in sys.argv:
+        long_sweep([int(x) for x in sys.argv[sys.argv.index("--long-seeds") + 1].split(",")],
+                   plain="--plain" in sys.argv, audit="--audit" in sys.argv,
+                   attention=sys.argv[sys.argv.index("--attention") + 1] if "--attention" in sys.argv else "kernel")
+        print(smi, flush=True)
+        return 0
+    if "--only-attention" in sys.argv:
+        try:
+            attention_phase(torch.Generator(device="cuda").manual_seed(0))
+        except AssertionError as e:
+            emit({"phase": "kernels", "kernel": "attention", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
         print(smi, flush=True)
         return 0
     if "--only-pose-gn" in sys.argv:

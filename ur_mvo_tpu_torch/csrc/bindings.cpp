@@ -17,11 +17,17 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
+#include <map>
+#include <string>
+
 extern "C" int urmvo_stage_conv(int dtype, int cin, int cmid, int cout, const void* x, const void* wa,
                                 const float* ba, const void* wb, const float* bb, void* out, int B, int H, int W,
                                 void* stream);
 extern "C" int urmvo_attention(int dtype, const void* q, const void* k, const void* v, const uint8_t* valid,
-                               void* out, int B, int Kq, int Kkv, int H, int head_dim, float scale, void* stream);
+                               void* out, int B, int Kq, int Kkv, int H, int head_dim, float scale, int split,
+                               void* stream);
+extern "C" int urmvo_attention_occupancy(int Kkv, int split, int* blocks_per_sm, int* regs, int* smem,
+                                         int* local_bytes);
 extern "C" int urmvo_sinkhorn(const float* C, const float* log_mu, const float* log_nu, float* u, float* v,
                               float* out, int M, int N, int iters, void* stream);
 
@@ -92,11 +98,14 @@ at::Tensor stage_conv(const at::Tensor& x, const at::Tensor& wa, const at::Tenso
   return out;
 }
 
-// q (B, Kq, H, d), k / v (B, Kkv, H, d), kv_valid (B, Kkv) uint8 -> (B, Kq, H, d).
+// q (B, Kq, H, d), k / v (B, Kkv, H, d), kv_valid (B, Kkv) bool or uint8 (one
+// byte a key either way, nonzero valid) -> (B, Kq, H, d). `split`: the bf16
+// key-group kernel.
 at::Tensor attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v, const at::Tensor& kv_valid,
-                     double scale) {
+                     double scale, bool split) {
   TORCH_CHECK(q.is_cuda() && q.dim() == 4 && q.is_contiguous(), "attention: q must be a contiguous 4-D CUDA tensor");
   const int dt = dtype_code(q, "attention");
+  TORCH_CHECK(!split || q.scalar_type() == at::kBFloat16, "attention: the key-group kernel takes bf16");
   const int64_t B = q.size(0), Kq = q.size(1), H = q.size(2), d = q.size(3);
   TORCH_CHECK(k.dim() == 4 && k.size(0) == B && k.size(2) == H && k.size(3) == d, "attention: k has shape ",
               k.sizes(), " for q ", q.sizes());
@@ -104,13 +113,25 @@ at::Tensor attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
   expect(k, q, q.scalar_type(), B * Kkv * H * d, "attention: k");
   expect(v, q, q.scalar_type(), B * Kkv * H * d, "attention: v");
   TORCH_CHECK(v.sizes() == k.sizes(), "attention: v has shape ", v.sizes(), ", k ", k.sizes());
-  expect(kv_valid, q, at::kByte, B * Kkv, "attention: kv_valid");
+  expect(kv_valid, q, kv_valid.scalar_type() == at::kBool ? at::kBool : at::kByte, B * Kkv, "attention: kv_valid");
+  for (const at::Tensor* t : {&q, &k, &v})
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0, "attention: q, k and v must be 16-byte aligned");
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor out = at::empty_like(q);
-  check_launch(urmvo_attention(dt, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr<uint8_t>(),
-                               out.data_ptr(), int(B), int(Kq), int(Kkv), int(H), int(d), float(scale), stream_of(q)),
+  check_launch(urmvo_attention(dt, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               static_cast<const uint8_t*>(kv_valid.data_ptr()), out.data_ptr(), int(B), int(Kq),
+                               int(Kkv), int(H), int(d), float(scale), int(split), stream_of(q)),
                "attention");
   return out;
+}
+
+// A bf16 attention kernel's footprint for Kkv keys on the current device.
+std::map<std::string, int64_t> attention_occupancy(int64_t Kkv, bool split) {
+  int blocks = 0, regs = 0, smem = 0, local = 0;
+  check_launch(urmvo_attention_occupancy(int(Kkv), int(split), &blocks, &regs, &smem, &local),
+               "attention_occupancy");
+  return {{"blocks_per_sm", blocks}, {"regs_per_thread", regs}, {"smem_per_block", smem},
+          {"local_bytes_per_thread", local}};
 }
 
 // C (M, N), log_mu (M), log_nu (N), all float32 -> C + u + v after `iters`
@@ -211,6 +232,8 @@ at::Tensor point_reduce(const at::Tensor& A, const at::Tensor& Vp, const at::Ten
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stage_conv", &stage_conv, "Fused SuperPoint encoder stage (csrc/stage_conv.cu)");
   m.def("attention", &attention, "Masked multi-head attention core (csrc/attention.cu)");
+  m.def("attention_occupancy", &attention_occupancy,
+        "Blocks per SM, registers, shared and local memory of a bf16 attention kernel");
   m.def("sinkhorn", &sinkhorn, "Log-domain Sinkhorn sweeps (csrc/sinkhorn.cu)");
   m.def("pose_gn", &pose_gn, "Pose-only robust Gauss-Newton schedule (csrc/pose_gn.cu)");
   m.def("pose_gn_chain", &pose_gn_chain, "Dependent reduce-and-broadcast chain of pose_gn's width (csrc/pose_gn.cu)");

@@ -33,9 +33,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor,
-              plain: bool = False) -> torch.Tensor:
+              plain: bool = False, split: bool = False) -> torch.Tensor:
     """Masked attention core; see :func:`attention_plain` for the contract.
-    ``plain=True`` asks for the plain version on any device."""
+    ``plain=True`` asks for the plain version on any device. ``split=True``
+    launches the bf16 key-group kernel (``attention_split_kernel``, counted
+    as ``attention_split``) in place of the main path's: its outputs differ
+    from the main path's by about a bf16 ulp, and the matcher does not use
+    it (``csrc/attention.cu``)."""
     if plain or q.device.type == "cpu":
         return attention_plain(q, k, v, kv_valid)
     if q.device.type != "cuda":
@@ -46,9 +50,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch
         raise ValueError(f"attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} valid{tuple(kv_valid.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} not supported")
-    valid = kv_valid.to(torch.uint8).contiguous()
-    out = cuda_ext.extension().attention(q.contiguous(), k.contiguous(), v.contiguous(), valid, 1.0 / math.sqrt(d))
-    cuda_ext.count("attention")
+    if split and q.dtype != torch.bfloat16:
+        raise ValueError(f"attention: the key-group kernel takes bfloat16, not {q.dtype}")
+    # bool (or uint8) as it is: the kernel reads a byte a key
+    out = cuda_ext.extension().attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_valid.contiguous(),
+                                         1.0 / math.sqrt(d), split)
+    cuda_ext.count("attention_split" if split else "attention")
     return out
 
 
