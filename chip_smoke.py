@@ -19,8 +19,14 @@ layers, bf16 compute. Phases, each printing one JSON line:
 2. build: time to compile the kernels;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes, in bf16 and float32 (max error beside its bound; for
-   attention, the main path's bf16 kernel and the key-group kernel beside
-   it, also ragged query and key counts and the errors of a swapped mask,
+   the encoder stages also ragged shapes (64x80, 66x90, 480x640 at B = 2),
+   the errors of conv_b fed the previous tap's weights and, where a stage
+   runs as a thread-block cluster, of each block without its peer's
+   channels, which must exceed the bound, a bitwise repeat, the blocks
+   launched, blocks per SM, registers and shared memory of each shape, and
+   the output bits as ``STAGE_CONV_DIGEST`` records them; for attention,
+   the main path's bf16 kernel and the key-group kernel beside it, also
+   ragged query and key counts and the errors of a swapped mask,
    of a dropped first key tile, of a dropped last step and of a dropped last
    key group, which must exceed the bound; two launches bit for bit equal;
    no other kernel in its wrapper calls; blocks per SM and registers per
@@ -117,7 +123,10 @@ the long gate; ``--attention kernel|split|plain`` routes only the matcher's
 attention (the main path's kernel, the key-group kernel, the plain
 version), and ``--audit`` holds both bf16 attention kernels against the
 plain version on every attention call of those runs, a line per layer.
-``--only-attention`` builds and runs the attention checks of phase 3.
+``--only-attention`` builds and runs the attention checks of phase 3;
+``--only-stage-conv`` those of the encoder stages. ``--stage-digest`` prints
+``stage_conv_digest()`` alone (it runs in an older checkout too: copy this
+file into one and run it there to take that kernel's digest).
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
 ``--ptxas`` prints registers and shared memory per kernel.
@@ -201,6 +210,17 @@ LONG_MAP = (14000, 1000)
 # was set on those bits, and a change of them moves its 3-seed mean by up
 # to ~0.2 (PERF.md, section 6), so the main path keeps them.
 ATTENTION_DIGEST = "f1cc34280e833d06d15dd221a3f368967b379bcfbee5cae34c2977e98df135bf"
+# SuperPoint's encoder stages: the convs of each
+STAGE_CONVS = {"stage1": ("conv1a", "conv1b"), "stage2": ("conv2a", "conv2b"), "stage3": ("conv3a", "conv3b")}
+# (B, H, W) of the stage kernel's ragged checks: tiles cut by the image's
+# edge (66x90 leaves 33x45 pooled outputs) and the long protocol's 480x640
+STAGE_RAGGED = ((1, 64, 80), (2, 66, 90), (2, 480, 640))
+# sha256 of stage_conv_digest(): the bf16 stage outputs as the kernel of
+# commit 8f88b95 gives them, that commit's stage_conv.cu built on the card
+# beside this one (``python3 chip_smoke.py --stage-digest`` from a checkout
+# of it). The gates of phases 8-9 were set on those bits, so the stage
+# kernel keeps them.
+STAGE_CONV_DIGEST = "faa335d60a5204a04f7ba45f2d2d5fe1ceacff1ed98898735590e26de91f8e29"
 
 
 
@@ -347,6 +367,194 @@ def front_end_config(Configs, width=W, height=H):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def shipped_superpoint():
+    import torch
+
+    from ur_mvo_tpu_torch.models.superpoint import SuperPoint, load_torch_weights
+
+    sp = SuperPoint()
+    sp.load_state_dict(load_torch_weights(SP_WEIGHTS))
+    return sp.to(device="cuda", dtype=torch.bfloat16)
+
+
+def stage_convs(sp, name):
+    na, nb = STAGE_CONVS[name]
+    return getattr(sp, na), getattr(sp, nb)
+
+
+def stage_conv_digest():
+    """sha256 of the bf16 stage kernel's outputs with the shipped weights:
+    stages 1, 2, 3 chained as the backbone chains them, on rendered frames
+    (seed 0) at 240x320 and 480x640, B = 1 and B = 2, with a short digest of
+    each output beside. It calls only what the stage wrapper has always taken
+    (``pack_stage``, ``stage_conv(packed=)``), so the same function digests
+    an older checkout's kernel."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_conv
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    sp = shipped_superpoint()
+    digest, parts = hashlib.sha256(), {}
+    for h, w, fx in ((H, W, FX), (LONG_H, LONG_W, LONG_FX)):
+        images, _, _ = render_sequence(2, h, w, fx, seed=0)
+        for B in (1, 2):
+            x = (torch.from_numpy(np.asarray(images[:B])).cuda().float() / 255.0).to(torch.bfloat16)[..., None]
+            for name in STAGE_CONVS:
+                ca, cb = stage_convs(sp, name)
+                args = (ca.weight, ca.bias, cb.weight, cb.bias)
+                x = cuda_conv.stage_conv(x, *args, packed=cuda_conv.pack_stage(*args, x.dtype))
+                out = x.view(torch.int16).cpu().numpy().tobytes()
+                digest.update(out)
+                parts[f"{h}x{w} B{B} {name}"] = hashlib.sha256(out).hexdigest()[:16]
+    return digest.hexdigest(), parts
+
+
+def stage_plain_variant(x, wa, ba, wb, bb, tap_shift=0, cluster=1):
+    """The plain stage (``cuda_conv.stage_conv_plain``'s arithmetic) with a
+    fault a kernel could have: conv_b's weights taken ``tap_shift`` taps back
+    (a wrong weight slot), or each of ``cluster`` slices of the output
+    channels computed from its own slice of conv_a's channels alone (a
+    cluster block that dropped its peers' channels)."""
+    import torch
+    import torch.nn.functional as F
+
+    def r(t):
+        return t.to(x.dtype).float()
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        a = r(F.relu(F.conv2d(x.float().permute(0, 3, 1, 2), r(wa), r(ba), padding=1)))
+        w = r(wb)
+        if tap_shift:
+            w = w.reshape(*w.shape[:2], 9).roll(tap_shift, -1).reshape(w.shape)
+        if cluster > 1:
+            co, cm = w.shape[0] // cluster, w.shape[1] // cluster
+            keep = torch.zeros(w.shape[:2], device=w.device)
+            for k in range(cluster):
+                keep[k * co:(k + 1) * co, k * cm:(k + 1) * cm] = 1
+            w = w * keep[:, :, None, None]
+        b = F.relu(F.conv2d(a, w, r(bb), padding=1))
+    return F.max_pool2d(b, 2).to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def stage_phase(image):
+    """The bf16 stage kernel (the main path) and the float32 one against the
+    plain version on the card, stage by stage on a rendered 240x320 frame
+    with the shipped weights (each stage fed the plain version's output of
+    the one before). Bound: 2^-6 of max |plain|, two bf16 ulps of the
+    largest output (the versions sum in another order, which can move conv_a's
+    rounding by one ulp, and the output's); 1e-4 of it in float32. Also the
+    ragged shapes of ``STAGE_RAGGED`` (random inputs), two controls that must
+    miss the bound (conv_b fed the previous tap's weights; where the stage
+    runs as a cluster, each block without its peers' channels), the launch
+    (blocks, cluster, tiles) and footprint of each shape, a bitwise repeat,
+    the times beside the cuDNN sequence and the bound, and the main path's
+    output bits as ``STAGE_CONV_DIGEST`` records them."""
+    import torch
+    import torch.nn.functional as F
+
+    from ur_mvo_tpu_torch.ops import cuda_conv, cuda_ext
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ext = cuda_ext.extension()
+    digest, parts = stage_conv_digest()
+    emit({"phase": "kernels", "kernel": "stage_conv", "digest": digest, "expected": STAGE_CONV_DIGEST,
+          "digest_parts": parts})
+    sp = shipped_superpoint()
+    x = (torch.as_tensor(image, device=dev).float() / 255.0).to(torch.bfloat16)[None, :, :, None]
+    stage_rows = []
+    for name in STAGE_CONVS:
+        ca, cb = stage_convs(sp, name)
+        args = (x, ca.weight, ca.bias, cb.weight, cb.bias)
+        packed = cuda_conv.pack_stage(*args[1:], x.dtype)  # packed once, as SuperPoint does
+        out = cuda_conv.stage_conv(*args, packed=packed)
+        ref = cuda_conv.stage_conv_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2.0**-6 * ref.float().abs().max().item()
+        B, Hs, Ws, Cin = x.shape
+        Cmid, Cout = ca.weight.shape[0], cb.weight.shape[0]
+        info = ext.stage_conv_info(Cin, Cmid, Cout, B, Hs, Ws)
+
+        def control(**fault):
+            return (stage_plain_variant(*args, **fault).float() - ref.float()).abs().max().item()
+
+        controls = {"wrong_tap_err": control(tap_shift=1)}
+        if info["cluster"] > 1:
+            controls["dropped_peers_err"] = control(cluster=info["cluster"])
+        xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC (channels_last)
+
+        def library():
+            a = F.relu(F.conv2d(xl, ca.weight, ca.bias, padding=1))
+            b = F.relu(F.conv2d(a, cb.weight, cb.bias, padding=1))
+            return F.max_pool2d(b, 2)
+
+        flops = 2.0 * Hs * Ws * 9 * (Cin * Cmid + Cmid * Cout)
+        nbytes = 2.0 * (Hs * Ws * Cin + (Hs // 2) * (Ws // 2) * Cout + 9 * (Cin * Cmid + Cmid * Cout) + Cmid + Cout)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+        row = {
+            "shape": f"{Hs}x{Ws} {Cin}->{Cmid}->{Cout}", "max_abs_err": err, "tol": tol, **controls,
+            "plain_variant_exact": bool(torch.equal(stage_plain_variant(*args), ref)),
+            "bitwise_repeat": bool(torch.equal(out, cuda_conv.stage_conv(*args, packed=packed))), **info,
+            **timings(lambda: cuda_conv.stage_conv(*args, packed=packed), ("stage_mma_kernel",),
+                      lambda: cuda_conv.stage_conv_plain(*args), library),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+        }
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        emit({"phase": "kernels", "kernel": name, **row})
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel vs plain max |err| {err} > {tol}")
+        if not (row["plain_variant_exact"] and min(controls.values()) > tol):
+            raise AssertionError(f"{name}: tolerance {tol} does not tell a wrong tap or dropped peers from the "
+                                 f"right result: {controls}")
+        if not row["bitwise_repeat"]:
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        for Br, Hr, Wr in STAGE_RAGGED:
+            xr = torch.rand((Br, Hr, Wr, Cin), generator=gen, device=dev).to(torch.bfloat16)
+            rargs = (xr,) + args[1:]
+            outr = cuda_conv.stage_conv(*rargs, packed=packed)
+            refr = cuda_conv.stage_conv_plain(*rargs)
+            torch.cuda.synchronize()
+            errr = (outr.float() - refr.float()).abs().max().item()
+            tolr = 2.0**-6 * refr.float().abs().max().item()
+            emit({"phase": "kernels", "kernel": name, "shape": f"{Br}x{Hr}x{Wr}", "max_abs_err": errr, "tol": tolr,
+                  "finite": bool(torch.isfinite(outr).all()), **ext.stage_conv_info(Cin, Cmid, Cout, Br, Hr, Wr)})
+            if not errr <= tolr:
+                raise AssertionError(f"{name} {Br}x{Hr}x{Wr}: kernel vs plain max |err| {errr} > {tolr}")
+        # the float32 path (compute_dtype "float32"): CUDA-core loops against
+        # the plain version without TF32; the sums differ only in order
+        xf = x.float()
+        wf = tuple(t.float() for t in args[1:])
+        packed32 = cuda_conv.pack_stage(*wf, torch.float32)
+        out32 = cuda_conv.stage_conv(xf, *wf, packed=packed32)
+        ref32 = cuda_conv.stage_conv_plain(xf, *wf)
+        torch.cuda.synchronize()
+        err32 = (out32 - ref32).abs().max().item()
+        tol32 = 1e-4 * ref32.abs().max().item()
+        emit({"phase": "kernels", "kernel": name, "dtype": "float32", "max_abs_err": err32, "tol": tol32,
+              "ms": device_ms(lambda: cuda_conv.stage_conv(xf, *wf, packed=packed32), ("stage_fma_kernel",))[0]})
+        if not err32 <= tol32:
+            raise AssertionError(f"{name} float32: kernel vs plain max |err| {err32} > {tol32}")
+        stage_rows.append(row)
+        x = ref
+    if digest != STAGE_CONV_DIGEST:
+        raise AssertionError(f"stage_conv: the bf16 stage outputs changed bits (digest {digest}, expected "
+                             f"{STAGE_CONV_DIGEST}); the gates of phases 8-9 were set on those bits")
+
+    def mean_row(rs):
+        out = {k: sum(r[k] for r in rs) / len(rs) for k in ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")}
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        out["bound_by"] = rs[0]["bound_by"]
+        return out
+
+    # one kernel template serves stages 2 and 3: per-launch figures are the mean of the two
+    return {"stage1_conv": stage_rows[0], "stage_conv": mean_row(stage_rows[1:])}
+
+
 def attention_digest():
     """sha256 of the main path's bf16 attention outputs on fixed inputs
     (numpy, seed 7): the main shape with flat and with peaked logits, a bank
@@ -483,80 +691,12 @@ def attention_phase(gen):
 
 def kernel_phase(images):
     import torch
-    import torch.nn.functional as F
 
-    from ur_mvo_tpu_torch.models.superpoint import SuperPoint, load_torch_weights
-    from ur_mvo_tpu_torch.ops import cuda_conv, cuda_kernels
+    from ur_mvo_tpu_torch.ops import cuda_kernels
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = {}
-
-    # --- encoder stages on a rendered frame with the shipped weights ------
-    sp = SuperPoint()
-    sp.load_state_dict(load_torch_weights(SP_WEIGHTS))
-    sp = sp.to(device=dev, dtype=torch.bfloat16)
-    x = (torch.as_tensor(images[0], device=dev).float() / 255.0).to(torch.bfloat16)[None, :, :, None]
-    stage_rows = []
-    for name, (na, nb) in zip(("stage1", "stage2", "stage3"), (("conv1a", "conv1b"), ("conv2a", "conv2b"), ("conv3a", "conv3b"))):
-        ca, cb = getattr(sp, na), getattr(sp, nb)
-        args = (x, ca.weight, ca.bias, cb.weight, cb.bias)
-        packed = cuda_conv.pack_stage(*args[1:], x.dtype)  # packed once, as SuperPoint does
-        out = cuda_conv.stage_conv(*args, packed=packed)
-        ref = cuda_conv.stage_conv_plain(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # two bf16 ulps of the largest output: the two versions sum in another
-        # order, which can move conv_a's rounding by one ulp, and the output's
-        tol = 2.0**-6 * ref.float().abs().max().item()
-        _, Hs, Ws, Cin = x.shape
-        Cmid, Cout = ca.weight.shape[0], cb.weight.shape[0]
-        xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC (channels_last)
-
-        def library():
-            a = F.relu(F.conv2d(xl, ca.weight, ca.bias, padding=1))
-            b = F.relu(F.conv2d(a, cb.weight, cb.bias, padding=1))
-            return F.max_pool2d(b, 2)
-
-        flops = 2.0 * Hs * Ws * 9 * (Cin * Cmid + Cmid * Cout)
-        nbytes = 2.0 * (Hs * Ws * Cin + (Hs // 2) * (Ws // 2) * Cout + 9 * (Cin * Cmid + Cmid * Cout) + Cmid + Cout)
-        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
-        row = {
-            "shape": f"{Hs}x{Ws} {Cin}->{Cmid}->{Cout}",
-            "max_abs_err": err, "tol": tol,
-            **timings(lambda: cuda_conv.stage_conv(*args, packed=packed), ("stage_mma_kernel",),
-                      lambda: cuda_conv.stage_conv_plain(*args), library),
-            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-        }
-        emit({"phase": "kernels", "kernel": name, **row})
-        if not err <= tol:
-            raise AssertionError(f"{name}: kernel vs plain max |err| {err} > {tol}")
-        # the float32 path (compute_dtype "float32"): CUDA-core loops against
-        # the plain version without TF32; the sums differ only in order
-        xf = x.float()
-        wf = tuple(t.float() for t in args[1:])
-        packed32 = cuda_conv.pack_stage(*wf, torch.float32)
-        out32 = cuda_conv.stage_conv(xf, *wf, packed=packed32)
-        ref32 = cuda_conv.stage_conv_plain(xf, *wf)
-        torch.cuda.synchronize()
-        err32 = (out32 - ref32).abs().max().item()
-        tol32 = 1e-4 * ref32.abs().max().item()
-        emit({"phase": "kernels", "kernel": name, "dtype": "float32", "max_abs_err": err32, "tol": tol32,
-              "ms": device_ms(lambda: cuda_conv.stage_conv(xf, *wf, packed=packed32), ("stage_fma_kernel",))[0]})
-        if not err32 <= tol32:
-            raise AssertionError(f"{name} float32: kernel vs plain max |err| {err32} > {tol32}")
-        stage_rows.append(row)
-        x = ref
-    rows["stage1_conv"] = stage_rows[0]
-
-    def mean_row(rs):
-        out = {k: sum(r[k] for r in rs) / len(rs) for k in ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms")}
-        out["max_abs_err"] = max(r["max_abs_err"] for r in rs)
-        out["bound_by"] = rs[0]["bound_by"]
-        return out
-
-    # one kernel serves stages 2 and 3: per-launch figures are the mean of the two
-    rows["stage_conv"] = mean_row(stage_rows[1:])
+    rows = stage_phase(images[0])
 
     rows["attention"] = attention_phase(gen)
 
@@ -1794,6 +1934,20 @@ def main() -> int:
             attention_phase(torch.Generator(device="cuda").manual_seed(0))
         except AssertionError as e:
             emit({"phase": "kernels", "kernel": "attention", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
+    if "--stage-digest" in sys.argv:
+        digest, parts = stage_conv_digest()
+        emit({"stage_conv_digest": digest, "parts": parts})
+        print(smi, flush=True)
+        return 0
+    if "--only-stage-conv" in sys.argv:
+        try:
+            stage_phase(render_sequence(N_FRAMES, H, W, FX, seed=0)[0][0])
+        except AssertionError as e:
+            emit({"phase": "kernels", "kernel": "stage_conv", "failed": str(e)})
             print(smi, flush=True)
             return 1
         print(smi, flush=True)

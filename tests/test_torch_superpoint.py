@@ -25,7 +25,7 @@ from ur_mvo_tpu_torch.models.superpoint import SuperPoint, load_torch_weights
 from ur_mvo_tpu_torch.ops import gridsample as tgs
 from ur_mvo_tpu_torch.ops import keypoints as tkp
 from ur_mvo_tpu_torch.ops import nms as tnms
-from ur_mvo_tpu_torch.ops.cuda_conv import stage_conv, stage_conv_plain
+from ur_mvo_tpu_torch.ops.cuda_conv import pack_stage, stage_conv, stage_conv_plain
 from ur_mvo_tpu_torch.utils.synthscene import render_sequence
 from ur_mvo_tpu_torch.weights import superpoint_from_numpy
 
@@ -122,6 +122,43 @@ def test_superpoint_packs_stage_weights_once_per_weight_set():
     tap, k, n = torch.meshgrid(torch.arange(9), torch.arange(ci), torch.arange(co), indexing="ij")
     got = frag[tap, k // 16, n // 8, 4 * (n % 8) + (k % 8) // 2, (k % 16) // 8, k % 2]
     assert torch.equal(got, w.permute(2, 3, 1, 0).reshape(9, ci, co))
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2], ids=["stage1", "stage2", "stage3"])
+def test_stage_weight_packing_unpacks_to_oihw(stage):
+    """The stage kernel's bf16 weight layout, unpacked in numpy from its
+    definition back to OIHW, gives the bf16-rounded shipped weights bit for
+    bit (each mma.m16n8k16 B-fragment word [tap][k16][n8][lane 4g + c][register
+    r] holds (k = 16 k16 + 8 r + 2 c + half, n = 8 n8 + g) in its two halves);
+    conv_a with Cin = 1 is a float [tap][co] filter of the same values. The
+    kernel stages per block the n8 columns of its channel slice, so every
+    column must sit where this says."""
+    na, nb = STAGES[stage]
+    state = load_torch_weights(SP_V3)
+    packed = pack_stage(state[f"{na}.weight"], state[f"{na}.bias"], state[f"{nb}.weight"], state[f"{nb}.bias"],
+                        torch.bfloat16)
+
+    def bits(w):  # bf16 bit patterns as uint16
+        return w.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+    def unpack(words, co, ci):
+        half = words.numpy().view(np.uint16).reshape(9, ci // 16, co // 8, 8, 4, 2, 2)
+        tap, ks, nt, g, c, r, h = np.meshgrid(*(np.arange(n) for n in half.shape), indexing="ij")
+        oihw = np.zeros((co, ci, 3, 3), np.uint16)
+        oihw[8 * nt + g, 16 * ks + 8 * r + 2 * c + h, tap // 3, tap % 3] = half
+        return oihw
+
+    for name, packed_w in ((nb, packed.wb), (na, packed.wa)):
+        w = state[f"{name}.weight"]
+        co, ci = w.shape[:2]
+        if ci == 1:
+            assert packed_w.dtype == torch.float32 and packed_w.shape == (3, 3, 1, co)  # [tap][co]
+            np.testing.assert_array_equal(bits(packed_w.permute(3, 2, 0, 1)), bits(w))
+        else:
+            assert packed_w.dtype == torch.int32 and packed_w.shape == (9, ci // 16, co // 8, 32, 2)
+            np.testing.assert_array_equal(unpack(packed_w, co, ci), bits(w))
+    np.testing.assert_array_equal(bits(packed.ba), bits(state[f"{na}.bias"]))
+    np.testing.assert_array_equal(bits(packed.bb), bits(state[f"{nb}.bias"]))
 
 
 def test_simple_nms_and_sample_descriptors_match_jax():

@@ -23,6 +23,7 @@
 extern "C" int urmvo_stage_conv(int dtype, int cin, int cmid, int cout, const void* x, const void* wa,
                                 const float* ba, const void* wb, const float* bb, void* out, int B, int H, int W,
                                 void* stream);
+extern "C" int urmvo_stage_conv_info(int cin, int cmid, int cout, int B, int H, int W, int* info);
 extern "C" int urmvo_attention(int dtype, const void* q, const void* k, const void* v, const uint8_t* valid,
                                void* out, int B, int Kq, int Kkv, int H, int head_dim, float scale, int split,
                                void* stream);
@@ -89,6 +90,10 @@ at::Tensor stage_conv(const at::Tensor& x, const at::Tensor& wa, const at::Tenso
     expect(wb, x, at::kInt, 9 * cmid * cout / 2, "stage_conv: wb");
   else
     expect(wb, x, at::kFloat, 9 * cmid * cout, "stage_conv: wb");
+  if (mma)
+    for (const at::Tensor* t : {&x, &wa, &wb})
+      TORCH_CHECK((cin == 1 && t == &x) || reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                  "stage_conv: x (cin > 1) and the packed weights must be 16-byte aligned");
   const c10::cuda::CUDAGuard guard(x.device());
   at::Tensor out = at::empty({B, H / 2, W / 2, cout}, x.options());
   check_launch(urmvo_stage_conv(dt, int(cin), int(cmid), int(cout), x.data_ptr(), wa.data_ptr(),
@@ -123,6 +128,17 @@ at::Tensor attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
                                int(Kkv), int(H), int(d), float(scale), int(split), stream_of(q)),
                "attention");
   return out;
+}
+
+// The bf16 stage kernel's launch and footprint for (B, H, W, cin) inputs on
+// the current device.
+std::map<std::string, int64_t> stage_conv_info(int64_t cin, int64_t cmid, int64_t cout, int64_t B, int64_t H,
+                                               int64_t W) {
+  int v[7] = {0};
+  check_launch(urmvo_stage_conv_info(int(cin), int(cmid), int(cout), int(B), int(H), int(W), v), "stage_conv_info");
+  return {{"blocks", v[0]},         {"cluster", v[1]},         {"tiles", v[2]},
+          {"blocks_per_sm", v[3]},  {"regs_per_thread", v[4]}, {"smem_per_block", v[5]},
+          {"local_bytes_per_thread", v[6]}};
 }
 
 // A bf16 attention kernel's footprint for Kkv keys on the current device.
@@ -231,6 +247,8 @@ at::Tensor point_reduce(const at::Tensor& A, const at::Tensor& Vp, const at::Ten
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("stage_conv", &stage_conv, "Fused SuperPoint encoder stage (csrc/stage_conv.cu)");
+  m.def("stage_conv_info", &stage_conv_info,
+        "The bf16 stage kernel's blocks, cluster, tiles, blocks per SM, registers, shared and local memory");
   m.def("attention", &attention, "Masked multi-head attention core (csrc/attention.cu)");
   m.def("attention_occupancy", &attention_occupancy,
         "Blocks per SM, registers, shared and local memory of a bf16 attention kernel");
