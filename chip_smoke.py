@@ -31,8 +31,14 @@ layers, bf16 compute. Phases, each printing one JSON line:
    key group, which must exceed the bound; two launches bit for bit equal;
    no other kernel in its wrapper calls; blocks per SM and registers per
    thread; its time over SDPA's; the main path's output bits as
-   ``ATTENTION_DIGEST`` records them); Sinkhorn's time also beside
-   the time the card takes to read its matrix once per half-sweep from L2; its
+   ``ATTENTION_DIGEST`` records them); for Sinkhorn (one cooperative
+   launch) the matcher's transport at capacity 1024 and random couplings at
+   ragged shapes, a single row and 2049 x 2049 (the streamed route), with
+   blocks, registers, shared memory and route per shape, a control whose
+   column sweeps read the previous iteration's u (it must miss the bound and
+   the digest), a bitwise repeat, one device record a wrapper call, the
+   output bits as ``SINKHORN_DIGEST`` records them, and its time beside an
+   empty kernel of 40 grid barriers on the same grid; each kernel's
    device time per launch from ``torch.profiler`` beside the plain version's
    and, where one exists, a PyTorch library call's, the wall time of a
    wrapper call, and the least time the card could take (``bound_ms``).
@@ -124,9 +130,11 @@ attention (the main path's kernel, the key-group kernel, the plain
 version), and ``--audit`` holds both bf16 attention kernels against the
 plain version on every attention call of those runs, a line per layer.
 ``--only-attention`` builds and runs the attention checks of phase 3;
-``--only-stage-conv`` those of the encoder stages. ``--stage-digest`` prints
-``stage_conv_digest()`` alone (it runs in an older checkout too: copy this
-file into one and run it there to take that kernel's digest).
+``--only-stage-conv`` those of the encoder stages, ``--only-sinkhorn``
+those of Sinkhorn. ``--stage-digest`` prints ``stage_conv_digest()`` alone,
+``--sinkhorn-digest`` ``sinkhorn_digest()`` with the time of a call (both
+run in an older checkout too: copy this file into one and run it there to
+take that kernel's digest).
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
 ``--ptxas`` prints registers and shared memory per kernel.
@@ -221,6 +229,20 @@ STAGE_RAGGED = ((1, 64, 80), (2, 66, 90), (2, 480, 640))
 # of it). The gates of phases 8-9 were set on those bits, so the stage
 # kernel keeps them.
 STAGE_CONV_DIGEST = "faa335d60a5204a04f7ba45f2d2d5fe1ceacff1ed98898735590e26de91f8e29"
+# Sinkhorn's checks: the matcher's transport at capacity 1024 (valid
+# keypoints of each frame), and random couplings: the timing shape, ragged
+# bands, a single row, and 2049 x 2049 (capacity 2048, the largest the
+# configuration takes), whose bands do not both fit in shared memory
+SINKHORN_TRANSPORTS = ((1000, 1000), (950, 1000))
+SINKHORN_SHAPES = ((1025, 1025), (257, 301), (1025, 513), (1, 1), (1, 300), (2049, 2049))
+# sha256 of sinkhorn_digest(): the output bits of the launch-a-half-sweep
+# kernel of commit 81bee71, that commit's sinkhorn.cu built on the card
+# (``python3 chip_smoke.py --sinkhorn-digest`` from a checkout of it). The
+# gates of phases 8-9 were set on those bits, so the kernel keeps them.
+SINKHORN_DIGEST = "4eb89b3c3fe7a6a37a4bd4f1d71187fb6467195f3aa7f46f9f68c2450bd04075"
+# that kernel's device and wall ms a call at 1025 x 1025, 20 iterations
+# (PERF.md, section 6, row 3): printed beside this kernel's
+SINKHORN_BEFORE = (0.2086, 0.274)
 
 
 
@@ -275,20 +297,27 @@ def profile_device(fn, calls: int):
     return device, host, wall
 
 
-def device_kernels(fn):
+def device_kernels(fn, opener: bool = False):
     """Names of the device records of a call of ``fn`` under the profiler
-    (after a warm-up call), in the order they started."""
+    (after a warm-up call), in the order they started. The profiler can drop
+    the first record of a window: ``opener`` starts the window with a fill
+    of one element, whose record is left out, so that every record of
+    ``fn`` is kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    marker = torch.empty(1, device="cuda") if opener else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if opener:
+            marker.fill_(0.0)
         fn()
         torch.cuda.synchronize()
     records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return [e.name for e in sorted(records, key=lambda e: e.time_range.start)]
+    names = [e.name for e in sorted(records, key=lambda e: e.time_range.start)]
+    return names[1:] if opener and names and "Fill" in names[0] else names
 
 
 def device_ms(fn, names=None, calls: int = 20, exclude=()):
@@ -692,56 +721,161 @@ def attention_phase(gen):
 def kernel_phase(images):
     import torch
 
-    from ur_mvo_tpu_torch.ops import cuda_kernels
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
     rows = stage_phase(images[0])
-
-    rows["attention"] = attention_phase(gen)
-
-    # --- Sinkhorn at 1025 x 1025 ------------------------------------------
-    K = 1024
-    sink_errs = []
-    for n0, n1 in ((1000, 1000), (950, 1000)):
-        scores = 3.0 * torch.randn((K, K), generator=gen, device=dev)
-        v0 = torch.arange(K, device=dev) < n0
-        v1 = torch.arange(K, device=dev) < n1
-        alpha = torch.tensor(1.5, device=dev)
-        Z = cuda_kernels.log_optimal_transport_kernel(scores, v0, v1, alpha, 20)
-        Zp = cuda_kernels.log_optimal_transport_kernel(scores, v0, v1, alpha, 20, plain=True)
-        torch.cuda.synchronize()
-        one = torch.ones(1, dtype=torch.bool, device=dev)
-        pair = torch.cat([v0, one])[:, None] & torch.cat([v1, one])[None, :]
-        err = (Z - Zp).abs()[pair].max().item()
-        tol = 1e-4  # valid block + dustbins, the JAX package's bound
-        sink_errs.append(err)
-        row = {"valid": [n0, n1], "max_abs_err": err, "tol": tol}
-        if n0 == 950:
-            M = N = K + 1
-            iters = 20
-            C = torch.randn((M, N), generator=gen, device=dev)
-            mu, nu = torch.randn(M, generator=gen, device=dev), torch.randn(N, generator=gen, device=dev)
-            ops = iters * 2 * M * N * 6 + 2 * M * N  # per element and half-sweep: add, max; add, sub, exp, add
-            nbytes = 4.0 * (2 * M * N + 2 * (M + N))
-            b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32)
-            # the 40 half-sweeps each read the matrix once, from L2: the time
-            # the card takes to read it that often, measured as one reduction
-            # over the matrix expanded 2 * iters times (stride 0, so L2-resident)
-            l2_ms = device_ms(lambda: C.expand(2 * iters, M, N).sum())[0]
-            row.update({
-                **timings(lambda: cuda_kernels.sinkhorn(C, mu, nu, iters), ("row_sweep", "col_sweep", "finalize"),
-                          lambda: cuda_kernels.sinkhorn_plain(C, mu, nu, iters), plain_calls=3),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "l2_sweeps_bound_ms": l2_ms, "l2_read_tb_s": 2 * iters * 4.0 * M * N / (l2_ms * 1e-3) / 1e12,
-            })
-            rows["sinkhorn"] = dict(row)
-        emit({"phase": "kernels", "kernel": "sinkhorn", **row})
-        if not err <= tol:
-            raise AssertionError(f"sinkhorn valid={n0}/{n1}: max |err| {err} > {tol}")
-    rows["sinkhorn"]["max_abs_err"] = max(sink_errs)
+    rows["attention"] = attention_phase(torch.Generator(device="cuda").manual_seed(0))
+    rows["sinkhorn"] = sinkhorn_phase()
     return rows
 
+
+# ---------------------------------------------------------------------------
+# Phase 3, Sinkhorn: the one-launch kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def sinkhorn_inputs(M, N, seed=5):
+    """Random (M, N) couplings and (M,), (N,) log-marginals (numpy, standard
+    normal) on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    arrays = (rng.standard_normal((M, N)), rng.standard_normal(M), rng.standard_normal(N))
+    return tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays)
+
+
+def transport_inputs(n0, n1, K=1024, seed=3):
+    """The matcher's transport at capacity K: scores 3 x standard normal,
+    the first n0 / n1 keypoints valid, dustbin score 1.5."""
+    import numpy as np
+    import torch
+
+    scores = 3.0 * np.random.RandomState(seed + n0).standard_normal((K, K))
+    dev = torch.device("cuda")
+    return (torch.from_numpy(scores.astype(np.float32)).to(dev), torch.arange(K, device=dev) < n0,
+            torch.arange(K, device=dev) < n1, torch.tensor(1.5, device=dev))
+
+
+def sinkhorn_digest():
+    """sha256 of the Sinkhorn kernel's output bits, with a short digest of
+    each part beside: the transport of ``SINKHORN_TRANSPORTS`` (20
+    iterations) and random couplings at ``SINKHORN_SHAPES`` (0 and 20
+    iterations). It calls only what the Sinkhorn wrappers have always taken
+    (``sinkhorn``, ``log_optimal_transport_kernel``), so the same function
+    digests an older checkout's kernel."""
+    import hashlib
+
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_kernels
+
+    digest, parts = hashlib.sha256(), {}
+
+    def add(name, out):
+        b = out.view(torch.int32).cpu().numpy().tobytes()
+        digest.update(b)
+        parts[name] = hashlib.sha256(b).hexdigest()[:16]
+
+    for n0, n1 in SINKHORN_TRANSPORTS:
+        add(f"transport {n0}/{n1}", cuda_kernels.log_optimal_transport_kernel(*transport_inputs(n0, n1), 20))
+    for M, N in SINKHORN_SHAPES:
+        C, mu, nu = sinkhorn_inputs(M, N)
+        for iters in (0, 20):
+            add(f"{M}x{N} iters {iters}", cuda_kernels.sinkhorn(C, mu, nu, iters))
+    return digest.hexdigest(), parts
+
+
+def sinkhorn_phase():
+    """The Sinkhorn kernel (one cooperative launch) against its plain version
+    on the card: the matcher's transport at capacity 1024 (1000/1000 and
+    950/1000 valid keypoints) and random couplings at ``SINKHORN_SHAPES``
+    (ragged, a single row, 2049 x 2049 on the streamed route), each within
+    1e-4 (the JAX package's bound), with its launch: blocks, blocks per SM,
+    registers, shared memory, bands and route. The output bits must be those
+    of ``SINKHORN_DIGEST``; a control whose column sweeps read the previous
+    iteration's u must miss both the digest and the bound; two launches must
+    agree bit for bit, and 20 wrapper calls must run 20 kernels and nothing
+    else (no memset). Then the times at 1025 x 1025, 20 iterations, beside the
+    plain version's, the bound and the yardstick of 40 grid barriers in an
+    empty kernel of the same grid."""
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext, cuda_kernels
+
+    ext = cuda_ext.extension()
+    tol, iters = 1e-4, 20
+    digest, parts = sinkhorn_digest()
+    errs = []
+    for n0, n1 in SINKHORN_TRANSPORTS:
+        args = transport_inputs(n0, n1)
+        couplings, mu, nu, _, pair = cuda_kernels.transport_problem(*args)
+        Z = cuda_kernels.log_optimal_transport_kernel(*args, iters)
+        Zp = cuda_kernels.log_optimal_transport_kernel(*args, iters, plain=True)
+        ref = cuda_kernels.sinkhorn_plain(couplings, mu, nu, iters)
+        stale = ext.sinkhorn(couplings, mu, nu, iters, True)
+        torch.cuda.synchronize()
+        err = (Z - Zp).abs()[pair].max().item()  # valid block + dustbins
+        row = {"valid": [n0, n1], "max_abs_err": err, "tol": tol,
+               "stale_u_err": (stale - ref).abs()[pair].max().item(),
+               "bitwise_repeat": bool(torch.equal(Z, cuda_kernels.log_optimal_transport_kernel(*args, iters)))}
+        emit({"phase": "kernels", "kernel": "sinkhorn", **row})
+        errs.append(err)
+        if not (err <= tol and row["bitwise_repeat"]):
+            raise AssertionError(f"sinkhorn valid={n0}/{n1}: max |err| {err} > {tol}, or two launches differ")
+        if not row["stale_u_err"] > tol:
+            raise AssertionError(f"sinkhorn: the bound {tol} does not tell a column sweep on the previous "
+                                 f"iteration's u from the right result ({row['stale_u_err']})")
+    for M, N in SINKHORN_SHAPES:
+        C, mu, nu = sinkhorn_inputs(M, N)
+        out = cuda_kernels.sinkhorn(C, mu, nu, iters)
+        ref = cuda_kernels.sinkhorn_plain(C, mu, nu, iters)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        info = ext.sinkhorn_info(M, N)
+        route = "resident" if info["cols_resident"] else "streamed"
+        emit({"phase": "kernels", "kernel": "sinkhorn", "shape": f"{M}x{N}", "max_abs_err": err, "tol": tol,
+              "finite": bool(torch.isfinite(out).all()), "route": route, **info})
+        errs.append(err)
+        if not (err <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"sinkhorn {M}x{N}: max |err| {err} > {tol} (or not finite)")
+
+    # the control in place of the wrapper: the digest's inputs through
+    # column sweeps that read the previous iteration's u
+    wrapper = cuda_kernels.sinkhorn
+    cuda_kernels.sinkhorn = lambda C, mu, nu, iterations=20, plain=False: ext.sinkhorn(C, mu, nu, iterations, True)
+    try:
+        stale_digest, _ = sinkhorn_digest()
+    finally:
+        cuda_kernels.sinkhorn = wrapper
+    emit({"phase": "kernels", "kernel": "sinkhorn", "digest": digest, "expected": SINKHORN_DIGEST,
+          "stale_u_digest": stale_digest, "digest_parts": parts})
+
+    M = N = 1025
+    C, mu, nu = sinkhorn_inputs(M, N)
+    names = device_kernels(lambda: [cuda_kernels.sinkhorn(C, mu, nu, iters) for _ in range(20)], opener=True)
+    launched = sum("sinkhorn_kernel" in n for n in names)
+    ops = iters * 2 * M * N * 6 + 2 * M * N  # per element and half-sweep: add, max; add, sub, exp, add
+    nbytes = 4.0 * (2 * M * N + 2 * (M + N))
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32)
+    row = {
+        "shape": f"{M}x{N}", "iters": iters, "max_abs_err": max(errs),
+        "kernels_in_20_calls": launched, "other_records_in_20_calls": len(names) - launched,
+        **timings(lambda: cuda_kernels.sinkhorn(C, mu, nu, iters), ("sinkhorn_kernel",),
+                  lambda: cuda_kernels.sinkhorn_plain(C, mu, nu, iters), plain_calls=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # 2 x iters grid barriers alone, in an empty kernel of the same grid
+        "barriers_ms": device_ms(lambda: ext.sinkhorn_barriers(C, M, N, iters), ("barrier_kernel",))[0],
+        # the earlier design's yardstick: the matrix read from L2 once a half-sweep
+        "l2_sweeps_ms": device_ms(lambda: C.expand(2 * iters, M, N).sum())[0],
+        "before_ms": SINKHORN_BEFORE[0], "before_wall_ms": SINKHORN_BEFORE[1],
+        **ext.sinkhorn_info(M, N),
+    }
+    emit({"phase": "kernels", "kernel": "sinkhorn", **row})
+    if launched != 20 or row["other_records_in_20_calls"]:
+        raise AssertionError(f"sinkhorn: 20 wrapper calls ran {launched} Sinkhorn kernels and "
+                             f"{row['other_records_in_20_calls']} other device records (one launch a call)")
+    if digest != SINKHORN_DIGEST or stale_digest == SINKHORN_DIGEST:
+        raise AssertionError(f"sinkhorn: output bits {digest} (stale-u control {stale_digest}), expected "
+                             f"{SINKHORN_DIGEST}: the kernel keeps the earlier design's bits")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1948,6 +2082,25 @@ def main() -> int:
             stage_phase(render_sequence(N_FRAMES, H, W, FX, seed=0)[0][0])
         except AssertionError as e:
             emit({"phase": "kernels", "kernel": "stage_conv", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
+    if "--sinkhorn-digest" in sys.argv:
+        from ur_mvo_tpu_torch.ops import cuda_kernels
+
+        digest, parts = sinkhorn_digest()
+        C, mu, nu = sinkhorn_inputs(1025, 1025)
+        call = lambda: cuda_kernels.sinkhorn(C, mu, nu, 20)  # noqa: E731
+        emit({"sinkhorn_digest": digest, "parts": parts, "ms_all_device_records": device_ms(call)[0],
+              "wall_ms": time_ms(call), "device_records_a_call": len(device_kernels(call, opener=True))})
+        print(smi, flush=True)
+        return 0
+    if "--only-sinkhorn" in sys.argv:
+        try:
+            sinkhorn_phase()
+        except AssertionError as e:
+            emit({"phase": "kernels", "kernel": "sinkhorn", "failed": str(e)})
             print(smi, flush=True)
             return 1
         print(smi, flush=True)

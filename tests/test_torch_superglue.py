@@ -68,11 +68,17 @@ def test_attention_plain_matches_pallas_and_xla(K, valid_counts):
         np.testing.assert_allclose(out, np.broadcast_to(v.mean(axis=1, keepdims=True), out.shape), atol=2e-5)
 
 
-@pytest.mark.parametrize("M,N,m,n,alpha,iters", [(48, 40, 30, 25, 0.7, 30), (33, 33, 33, 33, 1.0, 50)])
+@pytest.mark.parametrize("M,N,m,n,alpha,iters", [(48, 40, 30, 25, 0.7, 30), (33, 33, 33, 33, 1.0, 50),
+                                                 (129, 257, 100, 200, 1.2, 20), (40, 50, 0, 30, 1.0, 20),
+                                                 (1, 40, 1, 30, 0.5, 20)])
 def test_sinkhorn_plain_matches_jax_and_pallas(M, N, m, n, alpha, iters):
     """The kernel path's transport and the plain masked one against JAX's
     ``log_optimal_transport`` and the Pallas kernel in interpret mode: 1e-4
-    on the valid block plus the dustbins (test_pallas_kernels.py:26,36)."""
+    on the valid block plus the dustbins (test_pallas_kernels.py:26,36).
+    Beside the first two: the shapes the one-launch kernel's bands must
+    carry, M != N with both sides ragged against its 256-wide row sweep and
+    32 row groups; m = 0, where every real row's max clamps to -1e9 and only
+    the dustbins carry mass; a single row."""
     rng = np.random.default_rng(M)
     scores = (rng.normal(size=(M, N)) * 2.0).astype(np.float32)
     v0, v1 = np.arange(M) < m, np.arange(N) < n

@@ -29,8 +29,10 @@ extern "C" int urmvo_attention(int dtype, const void* q, const void* k, const vo
                                void* stream);
 extern "C" int urmvo_attention_occupancy(int Kkv, int split, int* blocks_per_sm, int* regs, int* smem,
                                          int* local_bytes);
-extern "C" int urmvo_sinkhorn(const float* C, const float* log_mu, const float* log_nu, float* u, float* v,
-                              float* out, int M, int N, int iters, void* stream);
+extern "C" int urmvo_sinkhorn(const float* C, const float* log_mu, const float* log_nu, float* work, float* out,
+                              int M, int N, int iters, int stale_u, void* stream);
+extern "C" int urmvo_sinkhorn_info(int M, int N, int* info);
+extern "C" int urmvo_sinkhorn_barriers(int M, int N, int iters, void* stream);
 
 extern "C" int urmvo_pose_gn(const float* X, const float* uv, const uint8_t* valid, const float* R0,
                              const float* t0, float* pose_out, uint8_t* inliers, int B, int N, float fx, float fy,
@@ -151,22 +153,41 @@ std::map<std::string, int64_t> attention_occupancy(int64_t Kkv, bool split) {
 }
 
 // C (M, N), log_mu (M), log_nu (N), all float32 -> C + u + v after `iters`
-// row/column sweeps from u = v = 0.
-at::Tensor sinkhorn(const at::Tensor& C, const at::Tensor& log_mu, const at::Tensor& log_nu, int64_t iters) {
+// row/column sweeps from u = v = 0, in one cooperative launch. The one
+// allocation holds `out` and, past its end, the M + N floats through which
+// the kernel's blocks exchange u and v. `stale_u` (a control for the checks
+// on the card) makes each column sweep use the previous iteration's u.
+at::Tensor sinkhorn(const at::Tensor& C, const at::Tensor& log_mu, const at::Tensor& log_nu, int64_t iters,
+                    bool stale_u) {
   TORCH_CHECK(C.is_cuda() && C.dim() == 2, "sinkhorn: C must be a 2-D CUDA tensor");
   const int64_t M = C.size(0), N = C.size(1);
   expect(C, C, at::kFloat, M * N, "sinkhorn: C");
   expect(log_mu, C, at::kFloat, M, "sinkhorn: log_mu");
   expect(log_nu, C, at::kFloat, N, "sinkhorn: log_nu");
   const c10::cuda::CUDAGuard guard(C.device());
-  at::Tensor u = at::zeros({M}, C.options());
-  at::Tensor v = at::zeros({N}, C.options());
-  at::Tensor out = at::empty_like(C);
-  check_launch(urmvo_sinkhorn(C.data_ptr<float>(), log_mu.data_ptr<float>(), log_nu.data_ptr<float>(),
-                              u.data_ptr<float>(), v.data_ptr<float>(), out.data_ptr<float>(), int(M), int(N),
-                              int(iters), stream_of(C)),
+  at::Tensor buf = at::empty({M * N + M + N}, C.options());
+  float* work = buf.data_ptr<float>() + M * N;
+  check_launch(urmvo_sinkhorn(C.data_ptr<float>(), log_mu.data_ptr<float>(), log_nu.data_ptr<float>(), work,
+                              buf.data_ptr<float>(), int(M), int(N), int(iters), int(stale_u), stream_of(C)),
                "sinkhorn");
-  return out;
+  return buf.narrow(0, 0, M * N).view({M, N});
+}
+
+// The Sinkhorn kernel's launch for (M, N) on the current device.
+std::map<std::string, int64_t> sinkhorn_info(int64_t M, int64_t N) {
+  int v[9] = {0};
+  check_launch(urmvo_sinkhorn_info(int(M), int(N), v), "sinkhorn_info");
+  return {{"blocks", v[0]},          {"blocks_per_sm", v[1]},  {"threads", v[2]},
+          {"regs_per_thread", v[3]}, {"smem_per_block", v[4]}, {"local_bytes_per_thread", v[5]},
+          {"rows_per_block", v[6]},  {"cols_per_block", v[7]}, {"cols_resident", v[8]}};
+}
+
+// 2 x iters grid barriers in an empty kernel of (M, N)'s Sinkhorn launch on
+// `like`'s device: the yardstick of the sweeps.
+void sinkhorn_barriers(const at::Tensor& like, int64_t M, int64_t N, int64_t iters) {
+  TORCH_CHECK(like.is_cuda(), "sinkhorn_barriers: needs a CUDA tensor for its device");
+  const c10::cuda::CUDAGuard guard(like.device());
+  check_launch(urmvo_sinkhorn_barriers(int(M), int(N), int(iters), stream_of(like)), "sinkhorn_barriers");
 }
 
 // X, uv (B, N, 3) float32, valid (B, N) uint8, R0 (B, 3, 3), t0 (B, 3) ->
@@ -252,7 +273,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("attention", &attention, "Masked multi-head attention core (csrc/attention.cu)");
   m.def("attention_occupancy", &attention_occupancy,
         "Blocks per SM, registers, shared and local memory of a bf16 attention kernel");
-  m.def("sinkhorn", &sinkhorn, "Log-domain Sinkhorn sweeps (csrc/sinkhorn.cu)");
+  m.def("sinkhorn", &sinkhorn, "Log-domain Sinkhorn sweeps in one cooperative launch (csrc/sinkhorn.cu)",
+        py::arg("C"), py::arg("log_mu"), py::arg("log_nu"), py::arg("iters"), py::arg("stale_u") = false);
+  m.def("sinkhorn_info", &sinkhorn_info,
+        "The Sinkhorn kernel's blocks, blocks per SM, threads, registers, shared and local memory, bands and route");
+  m.def("sinkhorn_barriers", &sinkhorn_barriers, "2 x iters grid barriers of the Sinkhorn launch (csrc/sinkhorn.cu)");
   m.def("pose_gn", &pose_gn, "Pose-only robust Gauss-Newton schedule (csrc/pose_gn.cu)");
   m.def("pose_gn_chain", &pose_gn_chain, "Dependent reduce-and-broadcast chain of pose_gn's width (csrc/pose_gn.cu)");
   m.def("point_reduce_sorted", &point_reduce_sorted, "BA point-side segment sums over point-sorted rows (csrc/point_reduce.cu)");

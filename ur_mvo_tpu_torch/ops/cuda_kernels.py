@@ -84,7 +84,8 @@ def sinkhorn(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor
     """Masked log-Sinkhorn on a prepared (M, N) float32 couplings matrix
     (dustbins included, -1e9 at invalid entries) with (M,)/(N,)
     log-marginals. Returns ``couplings + u + v``. ``plain=True`` asks for
-    the plain version on any device."""
+    the plain version on any device. On the card every sweep and the final
+    write are one cooperative launch (``csrc/sinkhorn.cu``)."""
     if plain or couplings.device.type == "cpu":
         return sinkhorn_plain(couplings, log_mu, log_nu, iterations)
     if couplings.device.type != "cuda":
@@ -99,17 +100,10 @@ def sinkhorn(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor
     return out
 
 
-def log_optimal_transport_kernel(
-    scores: torch.Tensor,
-    valid0: torch.Tensor,
-    valid1: torch.Tensor,
-    alpha: torch.Tensor,
-    iterations: int = 20,
-    plain: bool = False,
-) -> torch.Tensor:
-    """Dustbin transport through :func:`sinkhorn` (port of
-    ``log_optimal_transport_pallas``): builds the couplings and marginals,
-    runs the sweeps, subtracts ``norm`` and masks invalid pairs."""
+def transport_problem(scores: torch.Tensor, valid0: torch.Tensor, valid1: torch.Tensor, alpha: torch.Tensor):
+    """The dustbin transport's Sinkhorn inputs: the (M+1, N+1) couplings
+    (scores, ``alpha`` in the dustbin row and column, -1e9 at invalid pairs),
+    the log-marginals, ``norm`` = -log(m + n) and the valid-pair mask."""
     M, N = scores.shape
     dev = scores.device
     m = torch.sum(valid0.to(scores.dtype))
@@ -122,13 +116,27 @@ def log_optimal_transport_kernel(
     v0 = torch.cat([valid0, true1])
     v1 = torch.cat([valid1, true1])
     pair_mask = v0[:, None] & v1[None, :]
-    neg = torch.full_like(couplings, _NEG)
-    couplings = torch.where(pair_mask, couplings, neg)
+    couplings = torch.where(pair_mask, couplings, torch.full_like(couplings, _NEG))
 
     log_mu = torch.where(v0, norm, torch.full_like(norm, _NEG)).clone()
     log_mu[M] = torch.log(torch.clamp(n, min=1.0)) + norm
     log_nu = torch.where(v1, norm, torch.full_like(norm, _NEG)).clone()
     log_nu[N] = torch.log(torch.clamp(m, min=1.0)) + norm
+    return couplings, log_mu, log_nu, norm, pair_mask
 
+
+def log_optimal_transport_kernel(
+    scores: torch.Tensor,
+    valid0: torch.Tensor,
+    valid1: torch.Tensor,
+    alpha: torch.Tensor,
+    iterations: int = 20,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Dustbin transport through :func:`sinkhorn` (port of
+    ``log_optimal_transport_pallas``): builds the couplings and marginals
+    (:func:`transport_problem`), runs the sweeps, subtracts ``norm`` and
+    masks invalid pairs (with the couplings' own -1e9 there)."""
+    couplings, log_mu, log_nu, norm, pair_mask = transport_problem(scores, valid0, valid1, alpha)
     Z = sinkhorn(couplings, log_mu, log_nu, iterations, plain=plain) - norm
-    return torch.where(pair_mask, Z, neg)
+    return torch.where(pair_mask, Z, couplings)
