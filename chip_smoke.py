@@ -43,11 +43,18 @@ layers, bf16 compute. Phases, each printing one JSON line:
    and, where one exists, a PyTorch library call's, the wall time of a
    wrapper call, and the least time the card could take (``bound_ms``).
    The pose-GN kernel runs a problem of 300 tracks (half stereo rows, 30
-   outliers, 20 invalid), one of 1500 and a batch of two at 1024 mono tracks
-   against the plain optimizer: R within 2e-5, t within 2e-4, inlier flags equal on
-   >= 99%, two launches bit for bit equal, while the plain version cut to
-   one round must miss those limits; its time stands beside a chain of 40
-   dependent block-wide reduce-and-broadcast steps in an empty kernel;
+   outliers, 20 invalid), one of 1500, a batch of two at 1024 mono tracks
+   and a batch of two problems of which only one repeats its rounds,
+   against the plain optimizer's full 4 x 10 schedule: R within 2e-5, t
+   within 2e-4, inlier flags equal on >= 99%, two launches bit for bit
+   equal, while the plain version cut to one round must miss those limits;
+   the plain version's shortcut schedule must give the full one's bits on
+   the card; its output bits on ``pose_digest_cases``
+   must be those ``POSE_GN_DIGEST`` records (the kernel of commit f0fbc0f),
+   which a control whose round-repeat test ignores the Huber flag must
+   miss; the GN steps each problem ran per case; its time stands beside the
+   bound for the steps these inputs ran and a chain of as many dependent
+   reduce-and-publish steps in an empty kernel;
 4. frontend: ``NeuralExtractor.extract`` on 8 rendered frames and ``match``
    with F-RANSAC on each consecutive pair, with the launch counts of every
    kernel over that run; fails below 100 keypoints a frame or 60 inliers a
@@ -70,7 +77,8 @@ layers, bf16 compute. Phases, each printing one JSON line:
    insert >= 3 keyframes, emit >= 5 finite poses (the protocol's "not
    failed") and, on the kernels, lose at most 6 frames; the mean ATE must stay <= 0.15 (the
    gate of ``tests/test_accuracy_gates.py``); every kernel must launch
-   (``pose_gn`` at least once per tracked frame). Host ms per stage and per
+   (``pose_gn`` at least once per tracked frame; its mean GN steps per
+   problem are printed). Host ms per stage and per
    frame, the device's busy and idle share of a run, and the same sequences
    through the plain versions on the card, held to the same gate. The checked
    runs go under PyTorch's deterministic ``index_add_`` so that they repeat;
@@ -132,9 +140,10 @@ plain version on every attention call of those runs, a line per layer.
 ``--only-attention`` builds and runs the attention checks of phase 3;
 ``--only-stage-conv`` those of the encoder stages, ``--only-sinkhorn``
 those of Sinkhorn. ``--stage-digest`` prints ``stage_conv_digest()`` alone,
-``--sinkhorn-digest`` ``sinkhorn_digest()`` with the time of a call (both
-run in an older checkout too: copy this file into one and run it there to
-take that kernel's digest).
+``--sinkhorn-digest`` ``sinkhorn_digest()`` with the time of a call,
+``--pose-gn-digest`` ``pose_gn_digest()`` with the device and wall time of a
+call at B = 2, N = 1024 (all three run in an older checkout too: copy this
+file into one and run it there to take that kernel's digest).
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
 ``--ptxas`` prints registers and shared memory per kernel.
@@ -243,6 +252,15 @@ SINKHORN_DIGEST = "4eb89b3c3fe7a6a37a4bd4f1d71187fb6467195f3aa7f46f9f68c2450bd04
 # that kernel's device and wall ms a call at 1025 x 1025, 20 iterations
 # (PERF.md, section 6, row 3): printed beside this kernel's
 SINKHORN_BEFORE = (0.2086, 0.274)
+# sha256 of pose_gn_digest(): the output bits of the pose-GN kernel of commit
+# f0fbc0f (every step two passes and two reductions, all 40 steps), that
+# commit's pose_gn.cu built on the card (``python3 chip_smoke.py
+# --pose-gn-digest`` from a checkout of it). The gates of phases 8-9 were set
+# on those bits, so the kernel keeps them.
+POSE_GN_DIGEST = "e835064b9dd544703f0cea51ee47f4bd501544b4dcc1a4248a1992d414eda6c3"
+# that kernel's device and wall ms a call at B = 2, N = 1024 (PERF.md,
+# section 6, row 5): printed beside this kernel's
+POSE_GN_BEFORE = (0.1841, 0.283)
 
 
 
@@ -882,10 +900,10 @@ def sinkhorn_phase():
 # Phase 3, pose-GN: the kernel against the plain optimizer
 # ---------------------------------------------------------------------------
 
-def pose_problem(n, stereo_half, seed=3):
+def pose_problem(n, stereo_half, seed=3, outliers=True):
     """``n`` tracks around a true pose (0.5 px noise), a tenth of them gross
-    outliers, the last fifteenth invalid; with ``stereo_half`` the second
-    half carries stereo rows (bf = 40)."""
+    outliers (none without ``outliers``), the last fifteenth invalid; with
+    ``stereo_half`` the second half carries stereo rows (bf = 40)."""
     import numpy as np
 
     from ur_mvo_tpu_torch.utils.synthscene import so3_exp
@@ -902,55 +920,175 @@ def pose_problem(n, stereo_half, seed=3):
     v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, 0.5, n)
     ur = u - bf / pc[:, 2]
     ur[: n // 2 if stereo_half else n] = -1.0
-    u[: n // 10] += rng.uniform(20, 60, n // 10)
+    if outliers:
+        u[: n // 10] += rng.uniform(20, 60, n // 10)
     valid = np.ones(n, bool)
     valid[n - n // 15:] = False
     return X, np.stack([u, v, ur], 1).astype(np.float32), valid, R_true, t_true, (fx, fy, cx, cy, bf)
 
 
-def pose_gn_phase():
+# the fused frame step's two seeds of one problem: the PnP prior's stand-in
+# (the identity here) and the last pose
+FRAME_STEP_STARTS = (((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)), ((0.01, 0.02, -0.01), (0.05, 0.0, -0.02)))
+
+
+def pose_skip_mix(seed=11):
+    """Two problems of the same tracks, the first with outliers and the
+    second without: the second's round 1 repeats its round 0 (nothing to
+    drop), the first's does not, so one problem skips rounds while the
+    other steps. On the frame step's two seeds and seed 11, the second's
+    round 0 runs more steps than the first's round 1 (10 and 8 in the plain
+    version on the CPU): a batched skip that let the stepping problem's
+    fixed point stop the skipping one would show."""
+    return [pose_problem(300, True, seed=seed), pose_problem(300, True, seed=seed, outliers=False)]
+
+
+def pose_batch(problems, starts, dev="cuda"):
+    """(R0, t0, PoseObs, geometry) on ``dev`` of ``pose_problem`` outputs of
+    one N and one geometry, each with its start (rotation vector,
+    translation)."""
     import numpy as np
     import torch
 
-    from ur_mvo_tpu_torch.ops import cuda_ext
-    from ur_mvo_tpu_torch.ops.pose_opt import PoseObs, optimize_pose
+    from ur_mvo_tpu_torch.ops.pose_opt import PoseObs
     from ur_mvo_tpu_torch.utils.synthscene import so3_exp
 
-    dev = torch.device("cuda")
+    def stack(arrays):
+        return torch.from_numpy(np.stack(arrays)).to(dev)
+
+    R0 = stack([so3_exp(np.array(w, np.float64)).astype(np.float32) for w, _ in starts])
+    t0 = stack([np.array(t, np.float32) for _, t in starts])
+    obs = PoseObs(X=stack([q[0] for q in problems]), uv=stack([q[1] for q in problems]),
+                  valid=stack([q[2] for q in problems]))
+    return R0, t0, obs, problems[0][5]
+
+
+def pose_digest_cases(dev="cuda"):
+    """(name, (R0, t0, PoseObs, geometry), schedule keywords) of
+    ``pose_gn_digest``: the main path's shape (B = 2, N = 1024 mono, the
+    frame step's two seeds; first), 300 tracks with half stereo rows, 1500
+    (the streamed route), N = 1 and 257 (ragged), an all-invalid problem,
+    one without outliers, 8 problems of different seeds and starts and two
+    of which only one repeats its rounds (``pose_skip_mix``), each with the
+    whole schedule and cut to 1, 2 and 3 rounds (the outputs of the Huber
+    rounds, which the last round's pose does not show), then the schedule
+    cut to no step and stretched to 25 steps a round."""
+    import numpy as np
+
+    main = pose_batch([pose_problem(1024, False)] * 2, FRAME_STEP_STARTS, dev)
+    mixed = pose_batch([pose_problem(300, True)], FRAME_STEP_STARTS[:1], dev)
+    X, uv, valid, *rest = pose_problem(300, True, seed=4)
+    rng = np.random.default_rng(9)
+    starts8 = [(tuple(rng.normal(0, 0.02, 3)), tuple(rng.normal(0, 0.05, 3))) for _ in range(8)]
+    problems = [
+        ("main B=2 N=1024", main),
+        ("N=300 stereo half", mixed),
+        ("N=1500 streamed", pose_batch([pose_problem(1500, True)], FRAME_STEP_STARTS[1:], dev)),
+        ("N=1", pose_batch([pose_problem(1, False, seed=5)], FRAME_STEP_STARTS[1:], dev)),
+        ("N=257", pose_batch([pose_problem(257, True, seed=6)], FRAME_STEP_STARTS[1:], dev)),
+        ("all invalid", pose_batch([(X, uv, np.zeros_like(valid), *rest)], FRAME_STEP_STARTS[1:], dev)),
+        ("no outliers", pose_batch([pose_problem(600, True, seed=7, outliers=False)], FRAME_STEP_STARTS[:1], dev)),
+        ("B=8", pose_batch([pose_problem(512, b % 2 == 1, seed=20 + b) for b in range(8)], starts8, dev)),
+        ("B=2 skips differ", pose_batch(pose_skip_mix(), FRAME_STEP_STARTS, dev)),
+    ]
+    return ([(name, batch, {}) for name, batch in problems]
+            + [(f"{name} rounds={r}", batch, {"rounds": r}) for name, batch in problems for r in (1, 2, 3)]
+            + [("N=300 stereo half iters=0", mixed, {"iters_per_round": 0}),
+               ("main B=2 N=1024 iters=25", main, {"iters_per_round": 25})])
+
+
+def pose_gn_digest(cases=None):
+    """sha256 of the pose-GN kernel's output bits (R, t, inlier flags) on
+    ``pose_digest_cases``, with a short digest of each case beside. It calls
+    only ``optimize_pose``, which every checkout of the port has, so the same
+    function digests an older checkout's kernel."""
+    import hashlib
+
+    import torch
+
+    from ur_mvo_tpu_torch.ops.pose_opt import optimize_pose
+
+    digest, parts = hashlib.sha256(), {}
+    for name, (R0, t0, obs, geom), kw in cases or pose_digest_cases():
+        out = optimize_pose(R0, t0, obs, *geom, **kw)
+        b = b"".join(x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                     for x in (out.R_cw, out.t_cw, out.inliers.to(torch.uint8)))
+        digest.update(b)
+        parts[name] = hashlib.sha256(b).hexdigest()[:16]
+    return digest.hexdigest(), parts
+
+
+def pose_gn_time(R0, t0, obs, geom):
+    """Device ms of the pose-GN kernel a call (profiler) and wall ms of a
+    wrapper call, as every checkout's ``optimize_pose`` runs it."""
+    from ur_mvo_tpu_torch.ops.pose_opt import optimize_pose
+
+    call = lambda: optimize_pose(R0, t0, obs, *geom)  # noqa: E731
+    return {"ms": device_ms(call, ("pose_gn_kernel",))[0], "wall_ms": time_ms(call)}
+
+
+def pose_gn_phase():
+    """The pose-GN kernel against the plain optimizer on the card: 300
+    tracks (half stereo rows), 1500 (the streamed route) and the main path's
+    batch of two at 1024 mono tracks, R within 2e-5, t within 2e-4, inlier
+    flags equal on >= 99%, two launches bit for bit equal, near the true
+    pose, while the plain version cut to one round must miss those limits.
+    The reference is the plain version's full 4 x 10 schedule, which takes
+    neither shortcut; the plain version's shortcut schedule must give its
+    bits. The last batch holds two problems of which only one repeats its
+    rounds. Then the output bits on ``pose_digest_cases`` against
+    ``POSE_GN_DIGEST`` (the kernel of commit f0fbc0f), which a control whose
+    round-repeat test ignores the Huber flag must miss, and the steps each
+    problem ran per case. Then the times at the main shape beside the plain
+    version's, the bound for the steps these inputs ran and the yardstick of
+    one step's reduce-and-publish as many times in an empty kernel."""
+    import functools
+
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext, cuda_pose
+    from ur_mvo_tpu_torch.ops.pose_opt import optimize_pose, optimize_pose_plain
+
+    def full_schedule(R0, t0, obs, geom, **kw):
+        return optimize_pose_plain(R0, t0, obs.X, obs.uv, obs.valid, *geom, full_schedule=True, **kw)
+
     TOL_R, TOL_T, MIN_AGREE = 2e-5, 2e-4, 0.99
     worst = 0.0
     # 1500 tracks exceed what the threads hold in registers: the kernel's
-    # streaming variant; the last case is the main path's shape
-    for n, stereo_half, batch in ((300, True, 1), (1500, True, 1), (1024, False, 2)):
-        X, uv, valid, R_true, t_true, geom = pose_problem(n, stereo_half)
-        obs = PoseObs(X=torch.from_numpy(X).to(dev), uv=torch.from_numpy(uv).to(dev), valid=torch.from_numpy(valid).to(dev))
-        R0, t0 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-        if batch == 2:
-            # the fused frame step's layout: one problem, two seeds
-            obs = PoseObs(*(f.expand((2,) + f.shape) for f in obs))
-            R0 = torch.stack([R0, torch.from_numpy(so3_exp(np.array([0.01, 0.02, -0.01])).astype(np.float32)).to(dev)])
-            t0 = torch.stack([t0, torch.tensor([0.05, 0.0, -0.02], device=dev)])
+    # streaming variant; then the main path's shape; then two problems of
+    # which only one repeats its rounds
+    for n, stereo_half, problems in ((300, True, [pose_problem(300, True)]), (1500, True, [pose_problem(1500, True)]),
+                                     (1024, False, [pose_problem(1024, False)] * 2), (300, True, pose_skip_mix())):
+        batch = len(problems)
+        _, _, valid, R_true, t_true, _ = problems[0]
+        R0, t0, obs, geom = pose_batch(problems, FRAME_STEP_STARTS[:batch])
         out = optimize_pose(R0, t0, obs, *geom)
         again = optimize_pose(R0, t0, obs, *geom)
-        ref = optimize_pose(R0, t0, obs, *geom, plain=True)
-        cut = optimize_pose(R0, t0, obs, *geom, plain=True, rounds=1)  # the negative control
+        ref_R, ref_t, ref_inl, ref_steps = full_schedule(R0, t0, obs, geom)
+        short = optimize_pose(R0, t0, obs, *geom, plain=True)  # the shortcut schedule
+        cut_R, cut_t, _, _ = full_schedule(R0, t0, obs, geom, rounds=1)  # the negative control
         torch.cuda.synchronize()
-        err_R = (out.R_cw - ref.R_cw).abs().max().item()
-        err_t = (out.t_cw - ref.t_cw).abs().max().item()
-        agree = (out.inliers == ref.inliers).float().mean().item()
-        cut_R = (cut.R_cw - ref.R_cw).abs().max().item()
-        cut_t = (cut.t_cw - ref.t_cw).abs().max().item()
+        err_R = (out.R_cw - ref_R).abs().max().item()
+        err_t = (out.t_cw - ref_t).abs().max().item()
+        agree = (out.inliers == ref_inl).float().mean().item()
+        cut_R = (cut_R - ref_R).abs().max().item()
+        cut_t = (cut_t - ref_t).abs().max().item()
+        short_same = bool(torch.equal(short.R_cw, ref_R) and torch.equal(short.t_cw, ref_t)
+                          and torch.equal(short.inliers, ref_inl))
         same = bool(torch.equal(out.R_cw, again.R_cw) and torch.equal(out.t_cw, again.t_cw)
                     and torch.equal(out.inliers, again.inliers))
-        truth_R = (out.R_cw.reshape(-1, 3, 3) - torch.from_numpy(R_true).to(dev)).abs().max().item()
-        truth_t = (out.t_cw.reshape(-1, 3) - torch.from_numpy(t_true).to(dev)).abs().max().item()
+        truth_R = (out.R_cw - torch.from_numpy(R_true).cuda()).abs().max().item()
+        truth_t = (out.t_cw - torch.from_numpy(t_true).cuda()).abs().max().item()
         emit({"phase": "kernels", "kernel": "pose_gn", "n": n, "batch": batch, "stereo_rows": stereo_half,
               "err_R": err_R, "tol_R": TOL_R, "err_t": err_t, "tol_t": TOL_T, "inlier_agreement": agree,
               "one_round_err_R": cut_R, "one_round_err_t": cut_t, "repeatable": same,
+              "plain_shortcuts_equal_full_schedule": short_same, "full_schedule_steps": ref_steps.tolist(),
               "err_R_vs_truth": truth_R, "err_t_vs_truth": truth_t,
-              "n_inliers": out.n_inliers.reshape(-1).tolist(), "n_valid": int(valid.sum())})
+              "n_inliers": out.n_inliers.tolist(), "n_valid": int(valid.sum())})
         if not (err_R <= TOL_R and err_t <= TOL_T and agree >= MIN_AGREE):
             raise AssertionError(f"pose_gn n={n}: kernel vs plain R {err_R} (<= {TOL_R}), t {err_t} (<= {TOL_T}), inliers {agree}")
+        if not short_same:
+            raise AssertionError(f"pose_gn n={n}: the plain version's shortcut schedule differs from its full schedule")
         if cut_R <= TOL_R and cut_t <= TOL_T:
             raise AssertionError("pose_gn: the limits do not tell a schedule cut to one round from the right result")
         if not same:
@@ -959,25 +1097,64 @@ def pose_gn_phase():
             raise AssertionError(f"pose_gn n={n}: did not converge to the true pose (R {truth_R}, t {truth_t})")
         worst = max(worst, err_R, err_t)
 
+    # the output bits, the Huber-blind control's and the steps run per case
+    cases = pose_digest_cases()
+    wrapper, run_steps = cuda_pose.pose_gn, []
+
+    def recording(*args, **kw):
+        out = wrapper(*args, **kw)
+        run_steps.append(out[3].tolist())
+        return out
+
+    try:
+        cuda_pose.pose_gn = recording
+        digest, parts = pose_gn_digest(cases)
+        cuda_pose.pose_gn = functools.partial(wrapper, huber_blind=True)
+        blind_digest, blind_parts = pose_gn_digest(cases)
+    finally:
+        cuda_pose.pose_gn = wrapper
+    steps = dict(zip(parts, run_steps))
+    emit({"phase": "kernels", "kernel": "pose_gn", "digest": digest, "expected": POSE_GN_DIGEST,
+          "huber_blind_digest": blind_digest, "digest_parts": parts,
+          "huber_blind_differs_in": [k for k in parts if parts[k] != blind_parts[k]], "steps_run": steps})
+
     # times at the main path's shape: B = 2 seeds, N = 1024 mono tracks
-    B, N, steps = 2, 1024, 40
+    R0, t0, obs, geom = cases[0][1]
+    B, N = obs.X.shape[:2]
+    main = cases[0][0]
+    run = steps[main]
+    # the rounds each problem ran: round 0, and each later round whose cut
+    # adds steps (a skipped round adds none)
+    by_rounds = [steps[f"{main} rounds={r}"] for r in (1, 2, 3)] + [run]
+    rounds_run = [1 + sum(later[b] > earlier[b] for earlier, later in zip(by_rounds, by_rounds[1:]))
+                  for b in range(B)]
     ext = cuda_ext.extension()
-    nbytes = B * (N * (12 + 12 + 1) + 36 + 12) + B * (48 + N)
-    # per point and step: two projections (~30 each), weights (~6), three
-    # Jacobian rows (~40), 21 + 6 weighted sums (~190), two costs (~12);
-    # per step 29 block-wide sums over 256 partials
-    ops = B * (N * steps * 307.0 + steps * 29 * 255.0)
+    nbytes = B * (N * (12 + 12 + 1) + 36 + 12) + B * (48 + N + 4)
+    # per point and pass: one projection (~30), weights (~6), three
+    # Jacobian rows (~40), 21 + 6 weighted sums (~190), two costs (~12); a
+    # pass for each step and one at T0 for each round that runs, each pass
+    # followed by 29 block-wide sums over 256 partials; per point and round
+    # that runs a reclassification (a projection and two tests, ~35). For
+    # the steps and rounds each problem of these inputs runs, as the
+    # kernel reports them
+    ops = sum(N * ((s + r) * 278.0 + r * 35.0) + (s + r) * 29 * 255.0 for s, r in zip(run, rounds_run))
     b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32)
     row = {
-        "max_abs_err": worst,
+        "max_abs_err": worst, "steps_run": run, "rounds_run": rounds_run,
         **timings(lambda: optimize_pose(R0, t0, obs, *geom), ("pose_gn_kernel",),
                   lambda: optimize_pose(R0, t0, obs, *geom, plain=True), plain_calls=3),
+        "before_ms": POSE_GN_BEFORE[0], "before_wall_ms": POSE_GN_BEFORE[1],
         "bound_ms": b_ms, "bound_by": b_by,
-        "chain_ms": device_ms(lambda: ext.pose_gn_chain(obs.X, B, steps), ("chain_kernel",))[0],
-        "single_problem_ms": device_ms(lambda: optimize_pose(R0[0], t0[0], PoseObs(*(f[0] for f in obs)), *geom),
+        # one step's reduce-and-publish, as many times as the slower problem
+        # ran steps, in an empty kernel of the same shape
+        "chain_ms": device_ms(lambda: ext.pose_gn_chain(obs.X, B, max(run)), ("chain_kernel",))[0],
+        "single_problem_ms": device_ms(lambda: optimize_pose(R0[0], t0[0], type(obs)(*(f[0] for f in obs)), *geom),
                                        ("pose_gn_kernel",))[0],
     }
-    emit({"phase": "kernels", "kernel": "pose_gn", "shape": f"B={B} N={N} {steps} steps", **row})
+    emit({"phase": "kernels", "kernel": "pose_gn", "shape": f"B={B} N={N}", **row})
+    if digest != POSE_GN_DIGEST or blind_digest == POSE_GN_DIGEST:
+        raise AssertionError(f"pose_gn: output bits {digest} (Huber-blind control {blind_digest}), expected "
+                             f"{POSE_GN_DIGEST}: the kernel keeps the earlier design's bits")
     return row
 
 
@@ -1950,7 +2127,7 @@ def engine_phase(smi):
     import numpy as np
     import torch
 
-    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.ops import cuda_ext, cuda_pose
 
     # BA's segment sums are index_add_, which adds with atomics on the card;
     # a rounding difference there moves later keyframes, so one run scores
@@ -1963,12 +2140,15 @@ def engine_phase(smi):
 
     # --- the main path, with launch counts -------------------------------
     cuda_ext.LAUNCHES.clear()
+    cuda_pose.reset_steps()
     runs = [engine_run(vo, seed, scenes[seed]) for seed in ENGINE_SEEDS]
     launches = dict(cuda_ext.LAUNCHES)
+    gn_steps, gn_problems = cuda_pose.steps_run()
     rows = [r[0] for r in runs]
     tracked = vo.tracker.timer.summary().get("track", {}).get("count", 0)
     emit({"phase": "engine", "frames": ENGINE_FRAMES, "seeds": list(ENGINE_SEEDS), "runs": rows,
-          "tracked_frames": tracked, "max_ate": MAX_ATE, "launches": launches, "card": smi})
+          "tracked_frames": tracked, "max_ate": MAX_ATE, "launches": launches,
+          "pose_gn_problems": gn_problems, "pose_gn_mean_steps": gn_steps / max(gn_problems, 1), "card": smi})
     mean_ate = check_engine_runs(rows, "kernels", max_lost=MAX_FRAMES_LOST)
     missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
     if missing:
@@ -2105,8 +2285,18 @@ def main() -> int:
             return 1
         print(smi, flush=True)
         return 0
+    if "--pose-gn-digest" in sys.argv:
+        digest, parts = pose_gn_digest()
+        emit({"pose_gn_digest": digest, "parts": parts, "B=2 N=1024": pose_gn_time(*pose_digest_cases()[0][1])})
+        print(smi, flush=True)
+        return 0
     if "--only-pose-gn" in sys.argv:
-        pose_gn_phase()
+        try:
+            pose_gn_phase()
+        except AssertionError as e:
+            emit({"phase": "kernels", "kernel": "pose_gn", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
         print(smi, flush=True)
         return 0
     if "--only-ba-kernels" in sys.argv:

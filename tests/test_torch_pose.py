@@ -53,10 +53,11 @@ def _so3(w):
 # compares two float sums whose order differs between implementations.
 # ---------------------------------------------------------------------------
 
-def _pose_problem(kind):
+def _pose_problem(kind, outliers=True):
     """'mixed': N = 300, half stereo rows, 30 outliers, 20 invalid (the
     problem of tests/test_pallas_kernels.py); 'mono1024': mono only at the
-    main path's capacity."""
+    main path's capacity. ``outliers=False``: the same tracks without the
+    outliers."""
     rng = np.random.default_rng(3)
     N = 300 if kind == "mixed" else 1024
     X = rng.uniform([-2, -2, 4], [2, 2, 9], (N, 3)).astype(np.float32)
@@ -72,7 +73,8 @@ def _pose_problem(kind):
     else:
         ur[:] = -1.0
     n_out = N // 10
-    u[:n_out] += rng.uniform(20, 60, n_out)  # outliers
+    if outliers:
+        u[:n_out] += rng.uniform(20, 60, n_out)
     uv = np.stack([u, v, ur], 1).astype(np.float32)
     valid = np.ones(N, bool)
     valid[N - N // 15:] = False
@@ -146,3 +148,84 @@ def test_optimize_pose_schedule_cut_to_one_round_differs(pose_case):
     cut = tpose.optimize_pose(torch.eye(3), torch.zeros(3), tobs, FX, FY, CX, CY, bf, rounds=1)
     out = pose_case["out"]
     assert (cut.R_cw - out.R_cw).abs().max() > 2e-5 or (cut.t_cw - out.t_cw).abs().max() > 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the kernel's two exact shortcuts in the plain version: a round stops at its
+# first fixed point (a rejected step, or one onto the bits it started from)
+# and a round whose inputs repeat the previous round's is skipped. Both must
+# leave every output bit of the full 4 x 10 schedule.
+# ---------------------------------------------------------------------------
+
+def _frame_step_batch(X, uv, valid):
+    """The fused frame step's layout: one problem, two seeds (the PnP
+    prior's stand-in and the last pose)."""
+    R0 = torch.stack([torch.eye(3), T(_so3([0.01, 0.02, -0.01]))])
+    t0 = torch.stack([torch.zeros(3), torch.tensor([0.05, 0.0, -0.02])])
+    return R0, t0, T(X)[None].expand(2, -1, -1), T(uv)[None].expand(2, -1, -1), T(valid, torch.bool)[None].expand(2, -1)
+
+
+def _plain(args, **kw):
+    return tpose.optimize_pose_plain(*args, FX, FY, CX, CY, BF, **kw)
+
+
+def _assert_same_bits(a, b):
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "mono1024"])
+def test_fixed_point_shortcuts_keep_bits(kind):
+    args = _frame_step_batch(*_pose_problem(kind)[:3])
+    short, full = _plain(args), _plain(args, full_schedule=True)
+    _assert_same_bits(short, full)
+    assert full[3].tolist() == [40, 40]
+
+
+def test_shortcuts_fire_on_mono1024():
+    """Fewer than 40 steps for each problem, and round 2 skipped: with three
+    rounds the steps and the result are those of two."""
+    args = _frame_step_batch(*_pose_problem("mono1024")[:3])
+    out = _plain(args)
+    assert (out[3] < 40).all() and (out[3] > 0).all()
+    two, three = _plain(args, rounds=2), _plain(args, rounds=3)
+    assert torch.equal(two[3], three[3])
+    _assert_same_bits(two, three)
+
+
+@pytest.mark.parametrize("point", ["depth_crossing", "depth_zero"])
+def test_pathological_point_keeps_full_schedule_bits(point):
+    """One valid track that no step handles well: a point 1e12 away whose
+    depth crosses zero under a step's rotation (its cost at the candidate is
+    not finite, so the step is rejected and the round stops there), or a
+    point at depth 0 of the start pose (its Jacobian swamps the system)."""
+    X, uv, valid, _, _ = _pose_problem("mono1024")
+    X, uv, valid = X.copy(), uv.copy(), valid.copy()
+    X[500] = (-1e12, 0.0, 5e10) if point == "depth_crossing" else (1.0, 0.0, 0.0)
+    uv[500] = (300.0, 200.0, -1.0)
+    valid[500] = True
+    if point == "depth_crossing":
+        assert np.isfinite(FX * X[500, 0] / X[500, 2]) and X[500, 2] > 0  # finite at the start
+    args = _frame_step_batch(X, uv, valid)
+    short, full = _plain(args), _plain(args, full_schedule=True)
+    _assert_same_bits(short, full)
+    assert torch.isfinite(short[0]).all() and torch.isfinite(short[1]).all()
+
+
+@pytest.mark.parametrize("rounds", [2, 3, 4])
+def test_batch_whose_problems_disagree_on_skipping_keeps_bits(rounds):
+    """A batch in which one problem repeats its rounds and the other does
+    not: the same tracks without outliers (round 1 repeats round 0) beside
+    the 'mixed' problem (round 1 does not), on the frame step's two seeds.
+    The repeating problem keeps its pose through the rounds it skips while
+    the other steps, and each problem runs the steps it runs alone."""
+    dirty, clean = _pose_problem("mixed")[:3], _pose_problem("mixed", outliers=False)[:3]
+    R0, t0, *_ = _frame_step_batch(*dirty)
+    X, uv, valid = (np.stack(pair) for pair in zip(dirty, clean))
+    args = (R0, t0, T(X), T(uv), T(valid, torch.bool))
+    one, two = _plain(args, rounds=1), _plain(args, rounds=2)
+    assert two[3][0] > one[3][0] and two[3][1] == one[3][1]  # only the outlier-free problem skips round 1
+    short, full = _plain(args, rounds=rounds), _plain(args, rounds=rounds, full_schedule=True)
+    _assert_same_bits(short, full)
+    alone = [_plain(tuple(a[b:b + 1] for a in args), rounds=rounds)[3] for b in range(2)]
+    assert torch.equal(short[3], torch.cat(alone))

@@ -35,9 +35,10 @@ extern "C" int urmvo_sinkhorn_info(int M, int N, int* info);
 extern "C" int urmvo_sinkhorn_barriers(int M, int N, int iters, void* stream);
 
 extern "C" int urmvo_pose_gn(const float* X, const float* uv, const uint8_t* valid, const float* R0,
-                             const float* t0, float* pose_out, uint8_t* inliers, int B, int N, float fx, float fy,
-                             float cx, float cy, float bf, float chi2_mono, float chi2_stereo, int rounds, int iters,
-                             float damping, void* stream);
+                             const float* t0, float* pose_out, uint8_t* inliers, int* steps,
+                             unsigned long long* step_total, int B, int N, float fx, float fy, float cx, float cy,
+                             float bf, float chi2_mono, float chi2_stereo, int rounds, int iters, float damping,
+                             int huber_blind, void* stream);
 extern "C" int urmvo_pose_gn_chain(float* out, int B, int steps, void* stream);
 extern "C" int urmvo_point_reduce_sorted(const float* A, const float* Vp, const int* slot, const int* seg_start,
                                          float* out, int P, int FF, void* stream);
@@ -190,12 +191,15 @@ void sinkhorn_barriers(const at::Tensor& like, int64_t M, int64_t N, int64_t ite
   check_launch(urmvo_sinkhorn_barriers(int(M), int(N), int(iters), stream_of(like)), "sinkhorn_barriers");
 }
 
-// X, uv (B, N, 3) float32, valid (B, N) uint8, R0 (B, 3, 3), t0 (B, 3) ->
-// {pose (B, 12) float32: R row-major then t; inliers (B, N) uint8}.
+// X, uv (B, N, 3) float32, valid (B, N) uint8, R0 (B, 3, 3), t0 (B, 3),
+// step_total (1,) int64 ->
+// {pose (B, 12) float32: R row-major then t; inliers (B, N) uint8; steps (B,)
+// int32, the GN steps each problem ran, also added to step_total on the
+// device}. huber_blind: a control whose repeat test ignores the Huber flag.
 std::vector<at::Tensor> pose_gn(const at::Tensor& X, const at::Tensor& uv, const at::Tensor& valid,
                                 const at::Tensor& R0, const at::Tensor& t0, double fx, double fy, double cx,
                                 double cy, double bf, double chi2_mono, double chi2_stereo, int64_t rounds,
-                                int64_t iters, double damping) {
+                                int64_t iters, double damping, const at::Tensor& step_total, bool huber_blind) {
   TORCH_CHECK(X.is_cuda() && X.dim() == 3 && X.size(2) == 3, "pose_gn: X must be a (B, N, 3) CUDA tensor");
   const int64_t B = X.size(0), N = X.size(1);
   expect(X, X, at::kFloat, B * N * 3, "pose_gn: X");
@@ -203,20 +207,25 @@ std::vector<at::Tensor> pose_gn(const at::Tensor& X, const at::Tensor& uv, const
   expect(valid, X, at::kByte, B * N, "pose_gn: valid");
   expect(R0, X, at::kFloat, B * 9, "pose_gn: R0");
   expect(t0, X, at::kFloat, B * 3, "pose_gn: t0");
+  expect(step_total, X, at::kLong, 1, "pose_gn: step_total");
   const c10::cuda::CUDAGuard guard(X.device());
   at::Tensor pose = at::empty({B, 12}, X.options());
   at::Tensor inliers = at::empty({B, N}, valid.options());
+  at::Tensor steps = at::empty({B}, X.options().dtype(at::kInt));
   check_launch(urmvo_pose_gn(X.data_ptr<float>(), uv.data_ptr<float>(), valid.data_ptr<uint8_t>(),
                              R0.data_ptr<float>(), t0.data_ptr<float>(), pose.data_ptr<float>(),
-                             inliers.data_ptr<uint8_t>(), int(B), int(N), float(fx), float(fy), float(cx), float(cy),
-                             float(bf), float(chi2_mono), float(chi2_stereo), int(rounds), int(iters),
-                             float(damping), stream_of(X)),
+                             inliers.data_ptr<uint8_t>(), steps.data_ptr<int>(),
+                             reinterpret_cast<unsigned long long*>(step_total.data_ptr<int64_t>()), int(B), int(N),
+                             float(fx), float(fy), float(cx), float(cy), float(bf), float(chi2_mono),
+                             float(chi2_stereo), int(rounds), int(iters), float(damping), int(huber_blind),
+                             stream_of(X)),
                "pose_gn");
-  return {pose, inliers};
+  return {pose, inliers, steps};
 }
 
-// `steps` dependent block-wide reduce-and-broadcast pairs of pose_gn's width in
-// an otherwise empty kernel, B blocks: the yardstick of pose_gn's chain.
+// `steps` dependent block-wide reductions of a pose_gn step's 29 sums, each
+// published to the block, in an otherwise empty kernel, B blocks: the
+// yardstick of pose_gn's chain.
 at::Tensor pose_gn_chain(const at::Tensor& like, int64_t B, int64_t steps) {
   TORCH_CHECK(like.is_cuda(), "pose_gn_chain: needs a CUDA tensor for its device");
   const c10::cuda::CUDAGuard guard(like.device());
@@ -278,7 +287,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sinkhorn_info", &sinkhorn_info,
         "The Sinkhorn kernel's blocks, blocks per SM, threads, registers, shared and local memory, bands and route");
   m.def("sinkhorn_barriers", &sinkhorn_barriers, "2 x iters grid barriers of the Sinkhorn launch (csrc/sinkhorn.cu)");
-  m.def("pose_gn", &pose_gn, "Pose-only robust Gauss-Newton schedule (csrc/pose_gn.cu)");
+  m.def("pose_gn", &pose_gn, "Pose-only robust Gauss-Newton schedule (csrc/pose_gn.cu)", py::arg("X"),
+        py::arg("uv"), py::arg("valid"), py::arg("R0"), py::arg("t0"), py::arg("fx"), py::arg("fy"), py::arg("cx"),
+        py::arg("cy"), py::arg("bf"), py::arg("chi2_mono"), py::arg("chi2_stereo"), py::arg("rounds"),
+        py::arg("iters"), py::arg("damping"), py::arg("step_total"), py::arg("huber_blind") = false);
   m.def("pose_gn_chain", &pose_gn_chain, "Dependent reduce-and-broadcast chain of pose_gn's width (csrc/pose_gn.cu)");
   m.def("point_reduce_sorted", &point_reduce_sorted, "BA point-side segment sums over point-sorted rows (csrc/point_reduce.cu)");
   m.def("point_reduce", &point_reduce, "BA point-side segment sums by atomics (csrc/point_reduce.cu)");

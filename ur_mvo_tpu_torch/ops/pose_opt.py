@@ -114,11 +114,26 @@ def optimize_pose_plain(
     rounds: int = 4,
     iters_per_round: int = 10,
     damping: float = 1e-3,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    full_schedule: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the pose-GN kernel, batched: ``R_cw0`` (B, 3, 3),
     ``t_cw0`` (B, 3), ``X`` / ``uv`` (B, N, 3), ``valid`` (B, N) bool ->
-    (R (B, 3, 3), t (B, 3), inliers (B, N) bool). A Python loop of
-    ``rounds`` x ``iters_per_round`` steps of elementwise ops and sums."""
+    (R (B, 3, 3), t (B, 3), inliers (B, N) bool, steps (B,) int32). A
+    Python loop of ``rounds`` x ``iters_per_round`` steps of elementwise
+    ops and sums.
+
+    It takes the kernel's two exact shortcuts. A step that is rejected, or
+    that lands on the bits it started from, is a fixed point of its round:
+    every later step of the round would repeat it bit for bit, so a round's
+    loop ends once every problem of the batch is at one, and a problem at
+    its fixed point takes no further step. A round whose inlier set and
+    Huber flag equal the previous round's repeats its result, so a problem
+    for which it would repeat keeps its pose and flags through that round
+    (the round's loop is not run at all once every problem repeats). ``steps``
+    counts, per problem, the steps the kernel runs for it: those up to and
+    including its first fixed point, in the rounds it does not skip.
+    ``full_schedule`` runs every step of every round instead (the results
+    are the same bits; ``steps`` is then rounds x iters_per_round)."""
     f32 = torch.float32
     R0 = R_cw0.to(f32)
     t0 = t_cw0.to(f32)
@@ -162,12 +177,30 @@ def optimize_pose_plain(
             dim=-1,
         )  # (B, N, 6)
 
+    def bits(a):
+        return a.reshape(a.shape[0], -1).view(torch.int32)
+
     inl = validf
     R, t = R0, t0
+    nb = R0.shape[0]
+    steps = torch.zeros(nb, dtype=torch.int32, device=R0.device)
+    # repeat[b]: problem b's next round has the inputs (inlier set, Huber
+    # flag) of its last one, and so would repeat its result
+    repeat = torch.zeros(nb, dtype=torch.bool, device=R0.device)
     for rnd in range(rounds):
         use_huber = rnd < 3  # the robust kernel is dropped in the 4th round
-        R, t = R0, t0  # the vertex is reset at the start of every round
+        if full_schedule or rnd == 3:
+            repeat = torch.zeros_like(repeat)  # round 3 drops Huber: it never repeats round 2
+        if bool(repeat.all()):
+            continue  # R, t and the inlier flags stay
+        # the vertex is reset at the start of every round, except for the
+        # problems that skip it: they keep their pose and flags
+        R = torch.where(repeat[:, None, None], R, R0)
+        t = torch.where(repeat[:, None], t, t0)
+        live = ~repeat  # the problems still stepping in this round
         for _ in range(iters_per_round):
+            if not (full_schedule or bool(live.any())):
+                break
             pcx, pcy, pcz, iz, ru, rv, rr, chi2 = project(R, t)
             iz2 = iz * iz
             if use_huber:
@@ -208,11 +241,20 @@ def optimize_pose_plain(
             cost0 = robust_cost(chi2, inl, use_huber)
             cost1 = robust_cost(project(R_new, t_new)[7], inl, use_huber)
             ok = (cost1 <= cost0) & torch.isfinite(torch.sum(t_new, dim=-1))
-            R = torch.where(ok[:, None, None], R_new, R)
-            t = torch.where(ok[:, None], t_new, t)
+            # a rejected step, or one onto the same bits, is a fixed point
+            same = torch.all(bits(R_new) == bits(R), dim=-1) & torch.all(bits(t_new) == bits(t), dim=-1)
+            steps += live.to(torch.int32)
+            take = ok & live  # a problem at its fixed point, or skipping the round, takes no step
+            if not full_schedule:
+                live = live & ok & ~same
+            R = torch.where(take[:, None, None], R_new, R)
+            t = torch.where(take[:, None], t_new, t)
         _, _, pcz, _, _, _, _, chi2 = project(R, t)
-        inl = validf * (chi2 <= th).to(f32) * (pcz > 0.0).to(f32)
-    return R, t, inl > 0.5
+        inl_next = validf * (chi2 <= th).to(f32) * (pcz > 0.0).to(f32)
+        inl_next = torch.where(repeat[:, None], inl, inl_next)  # a problem that skipped keeps its flags
+        repeat = torch.all(inl_next == inl, dim=-1)
+        inl = inl_next
+    return R, t, inl > 0.5, steps
 
 
 def optimize_pose(
@@ -242,11 +284,11 @@ def optimize_pose(
         R0, t0, X, uv, valid = R0[None], t0[None], X[None], uv[None], valid[None]
     args = (R0, t0, X, uv, valid, fx, fy, cx, cy, bf, chi2_mono, chi2_stereo, rounds, iters_per_round, damping)
     if plain or X.device.type == "cpu":
-        R, t, inl = optimize_pose_plain(*args)
+        R, t, inl, _ = optimize_pose_plain(*args)
     else:
         from ur_mvo_tpu_torch.ops.cuda_pose import pose_gn
 
-        R, t, inl = pose_gn(*args)
+        R, t, inl, _ = pose_gn(*args)
     n_inl = torch.sum(inl.to(torch.int32), dim=-1)
     if single:
         R, t, inl, n_inl = R[0], t[0], inl[0], n_inl[0]
