@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (``ur_mvo_tpu_torch``) on one card: its
 kernels, its front end, the whole monocular engine and its long,
-loop-bearing protocol with global optimization.
+loop-bearing protocol with global optimization, and the stereo and RGB-D
+engines with the hybrid matcher.
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -101,7 +102,28 @@ layers, bf16 compute. Phases, each printing one JSON line:
    counts reset just before: its full BA must resolve to ``"sorted"`` and
    launch the sorted kernel, keyframes and points within phase 7's limits
    of the same call with ``kernels=False``, keyframe ATE lower after it;
-10. ba_kernels: both BA point-reduce kernels against their plain versions
+10. metric: the metric setups through ``UR_MVO(cfg, SensorSetup.STEREO |
+   RGBD, device="cuda")`` with the production configuration and matcher
+   ``hybrid`` (mutual-NN, SuperGlue's matches where NN has fewer than 40),
+   under deterministic algorithms, launch counts reset just before each
+   protocol: ``stereo/3d`` and ``rgbd/3d`` of ``scripts/bench_accuracy.py``
+   (24 frames at 240x320, fx 260, seeds 11-13; stereo renders a right image
+   0.12 m to the right, bf = fx x 0.12; RGB-D reads the rendered metric
+   depth) on the kernels and on the plain versions, and ``rgbd/long`` (its
+   long configuration, 120 frames at 480x640) on the kernels. The RGB-D
+   BAs sum the point side of bf16 summands, as the JAX package's window
+   route does (``BAConfig.bf16_point_side``). Per run the
+   init that fired (``_init_stereo`` / ``_init_rgbd``, as it must be),
+   keyframes, frames lost, relocalizations, the ATE without scale
+   correction, the pose-GN problems of the tracking steps with their mean
+   valid and stereo rows, and for ``rgbd/long`` the ATE after
+   ``global_optimize()`` and its full BA's size and resolved assembly.
+   Gates of ``tests/test_accuracy_gates.py``: no failed seed, mean ATE <
+   0.60 (``stereo/3d``) and < 0.15 (``rgbd/3d``), ``rgbd/long`` online <
+   0.30 and after global optimization < 0.25; every run >= 3 keyframes,
+   on the kernels <= 6 frames lost; every kernel of each path must launch,
+   and pose GN must be fed stereo rows on ``stereo/3d``;
+11. ba_kernels: both BA point-reduce kernels against their plain versions
    at that full BA's shape (its power-of-two buckets) and at a global BA's
    (65,536 points, 524,288 observations, FF 48): within 1e-5 of max
    |plain|, the sorted kernel bit for bit equal over two launches, points
@@ -109,7 +131,7 @@ layers, bf16 compute. Phases, each printing one JSON line:
    one must miss the limit; device ms after a read that evicts the L2
    (and back to back), wall, plain, the ``index_add_`` yardstick and the
    bound;
-11. global_ba: ``bundle_adjust`` at that global size: ``"auto"`` must
+12. global_ba: ``bundle_adjust`` at that global size: ``"auto"`` must
    resolve to ``"sorted"`` and launch the sorted kernel, and its solution
    must agree with the plain assembly on the card (R 1e-3, t 1e-3, X 5e-3,
    inliers >= 99%) and reach the truth (t 5e-2, R 5e-3); the explicit
@@ -120,7 +142,9 @@ layers, bf16 compute. Phases, each printing one JSON line:
 Then each phase's seconds, the ``kernels`` line (launches from the engine
 run; the sorted reduction's from the long map's ``global_optimize``, the
 unsorted one's from the ``"pallas"`` global BA; times at the global
-shape), the ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
+shape; ``launches_by_path``: each path's own counts, ``mono/long`` with the
+long map's ``global_optimize``), the ``nvidia-smi`` name/power-limit line,
+and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
 ``{"phase": ..., "failed": ...}`` line and the run goes on to the next
 phase; at the end any failure makes the exit code 1 and leaves the
 ``kernels`` and last lines out. An error that is not a check raises. Without CUDA it exits
@@ -146,6 +170,11 @@ call at B = 2, N = 1024 (all three run in an older checkout too: copy this
 file into one and run it there to take that kernel's digest).
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
+``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
+runs one metric protocol on those scenes through phase 10's code, printing
+each run's ATE (the spread behind its 3-seed gate) and the gate over all of
+them; ``--float32-point-side`` sums the RGB-D BAs' point side of exact
+float32 summands, as the monocular and stereo setups do.
 ``--ptxas`` prints registers and shared memory per kernel.
 """
 
@@ -182,6 +211,14 @@ MAX_FRAMES_LOST = ENGINE_FRAMES // 4
 LONG_W, LONG_H, LONG_FX = 640, 480, 520.0
 LONG_FRAMES = 120
 LONG_MAX_ONLINE, LONG_MAX_PGO = 1.2, 0.60
+# the metric protocols of scripts/bench_accuracy.py with matcher hybrid:
+# stereo/3d and rgbd/3d as mono/3d above (a 0.12 m baseline for stereo), and
+# rgbd/long as mono/long; ATE without scale correction. Gates of
+# tests/test_accuracy_gates.py: no failed seed, mean ATE under the bound
+# (rgbd/long: online and after global optimization)
+BASELINE_M = 0.12
+METRIC_MAX_ATE = {"stereo/3d": 0.60, "rgbd/3d": 0.15}
+RGBD_LONG_MAX_ONLINE, RGBD_LONG_MAX_PGO = 0.30, 0.25
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
@@ -1159,7 +1196,7 @@ def pose_gn_phase():
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the two BA point-reduce kernels against their plain versions
+# Phase 11: the two BA point-reduce kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def point_reduce_problem(P, O, FF, seed, dev):
@@ -1280,7 +1317,7 @@ def ba_kernels_phase(smi, shapes=None):
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the long protocol (relocalization, loop closure, global BA)
+# Phase 9: the long protocol (relocalization, loop closure, global BA)
 # ---------------------------------------------------------------------------
 
 def long_map(n_points, per_kf, seed=31):
@@ -1413,7 +1450,8 @@ def long_scene(seed):
 
 def long_run(vo, seed, scene):
     """One long-protocol run: the online ATE of the emitted trajectory, then
-    ``global_optimize()`` and the ATE of the keyframe trajectory after it."""
+    ``global_optimize()`` and the ATE of the keyframe trajectory after it
+    (with scale correction for mono, without it for a metric setup)."""
     import numpy as np
     import torch
 
@@ -1426,7 +1464,7 @@ def long_run(vo, seed, scene):
     t0 = time.perf_counter()
     per_frame, stamps, poses, init_at = run_engine(vo, frames)
     online_s = time.perf_counter() - t0
-    online = emitted_ate(stamps, poses, T_wc)
+    online = emitted_ate(stamps, poses, T_wc, needs_scale(vo))
     st = backend.store
     row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": st.num_keyframes(),
            "loop_edges": len(st.loop_edges), "relocalizations": vo.tracker.relocalizations,
@@ -1443,7 +1481,7 @@ def long_run(vo, seed, scene):
     row["full_ba"] = backend.last_full_ba
     kts, kpos, _ = vo.keyframe_trajectory()
     kidx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, LONG_FRAMES - 1)
-    row["pgo_ate"] = float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True, correct_scale=True))
+    row["pgo_ate"] = float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True, correct_scale=needs_scale(vo)))
     return row
 
 
@@ -1606,6 +1644,258 @@ def long_phase(smi):
     vo.shutdown()
     launches["point_reduce_sorted"] = launches.get("point_reduce_sorted", 0) + map_launches.get("point_reduce_sorted", 0)
     return launches, (P, O, F)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the metric setups (stereo, RGB-D) with the hybrid matcher
+# ---------------------------------------------------------------------------
+
+def metric_scene(protocol, seed):
+    """The frames (stereo: with the right image; RGB-D: with the rendered
+    metric depth) and true poses of one scene of a metric protocol."""
+    from ur_mvo_tpu_torch.components import DepthMap, Frame, Image
+    from ur_mvo_tpu_torch.utils.synthscene import out_and_back_trajectory, render_sequence
+
+    setup, cell = protocol.split("/")
+    if cell == "long":
+        n, h, w, fx, poses = LONG_FRAMES, LONG_H, LONG_W, LONG_FX, out_and_back_trajectory(LONG_FRAMES)
+    else:
+        n, h, w, fx, poses = ENGINE_FRAMES, H, W, FX, None
+    out = render_sequence(n, h, w, fx, seed=seed, n_planes=3, z_background=6.0, poses=poses,
+                          baseline=BASELINE_M if setup == "stereo" else 0.0)
+    frames = []
+    for i in range(n):
+        f = Frame(image=Image(out[0][i], i / FPS))
+        if setup == "stereo":
+            f.right_image = Image(out[3][i], i / FPS)
+        else:
+            f.depth_map = DepthMap(out[2][i])
+        frames.append(f)
+    return frames, out[1]
+
+
+def metric_engine(protocol, kernels=True, device="cuda", float32_point_side=False):
+    """``UR_MVO`` for a metric protocol: the production configuration with
+    matcher ``hybrid`` (``production_config``: the init-only NN floor of 40,
+    relocalization on; rgbd/long: its long-run configuration), and for stereo
+    a camera whose bf is fx times the baseline. ``float32_point_side``
+    swaps in a backend whose BAs sum the point side of exact float32
+    summands, as the monocular and stereo setups' do, where the RGB-D
+    setup's round them to bf16 (a measurement, ``--metric-seeds``)."""
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.config import Configs, SensorSetup
+    from ur_mvo_tpu_torch.engine import UR_MVO
+    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
+    from ur_mvo_tpu_torch.runtime.backend import Backend
+
+    setup, cell = protocol.split("/")
+    long_run = cell == "long"
+    w, h, fx = (LONG_W, LONG_H, LONG_FX) if long_run else (W, H, FX)
+    cfg = production_config(Configs, checkpoint_operating_point, long_run)
+    cfg.superglue.matcher = "hybrid"
+    cam = make_pinhole(w, h, fx, fx, w / 2, h / 2, bf=fx * BASELINE_M if setup == "stereo" else 0.0)
+    vo = UR_MVO(cfg, SensorSetup(setup), camera=cam, device=device, kernels=kernels)
+    if float32_point_side:
+        vo.tracker.backend = Backend(cam, cfg.backend, cfg.backend_optimization,
+                                     keypoints_per_frame=cfg.superpoint.capacity, device=device, kernels=kernels)
+    return vo
+
+
+class MetricProbe:
+    """What a metric run went through, read without a host sync on its
+    path: the init function that fired (the tracker's ``_init_stereo`` /
+    ``_init_rgbd`` wrapped on this engine), and the rows of each pose-GN
+    problem of the tracking steps (``frontend.optimize_pose`` wrapped):
+    valid rows and stereo rows (u_right > 0), summed on the device."""
+
+    def __init__(self, vo):
+        import torch
+
+        from ur_mvo_tpu_torch.runtime import frontend
+
+        self.frontend, self.inits = frontend, []
+        self.rows = torch.zeros(2, dtype=torch.int64, device="cuda")
+        self.problems = 0
+        self.optimize_pose = frontend.optimize_pose
+        tracker = vo.tracker
+        for name in ("_init_stereo", "_init_rgbd"):
+            setattr(tracker, name, self._init_wrapper(name, getattr(tracker, name)))
+
+        def counted(R0, t0, obs, *args, **kw):
+            valid = obs.valid.reshape(-1, obs.valid.shape[-1])
+            stereo = valid & (obs.uv.reshape(valid.shape + (3,))[..., 2] > 0)
+            self.rows += torch.stack([valid.sum(), stereo.sum()])
+            self.problems += valid.shape[0]
+            return self.optimize_pose(R0, t0, obs, *args, **kw)
+
+        frontend.optimize_pose = counted
+
+    def _init_wrapper(self, name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if out is not None:
+                self.inits.append(name)
+            return out
+
+        return wrapped
+
+    def read(self):
+        """(init functions that fired, pose-GN problems, mean valid rows and
+        mean stereo rows a problem) since the last read."""
+        valid, stereo = self.rows.tolist()
+        out = (self.inits, self.problems, valid / max(self.problems, 1), stereo / max(self.problems, 1))
+        self.inits, self.problems = [], 0
+        self.rows.zero_()
+        return out
+
+    def close(self):
+        self.frontend.optimize_pose = self.optimize_pose
+
+
+def metric_runs(protocol, kernels, scenes, smi, float32_point_side=False):
+    """A 24-frame metric protocol on the kernels or their plain versions
+    over ``scenes`` (seed -> scene), launch counts reset just before: per
+    seed the run's health, ATE and what the probe saw."""
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext, cuda_pose
+
+    vo = metric_engine(protocol, kernels, float32_point_side=float32_point_side)
+    probe = MetricProbe(vo)
+    cuda_ext.LAUNCHES.clear()
+    cuda_pose.reset_steps()
+    rows = []
+    try:
+        for seed, scene in scenes.items():
+            row, per_frame, _ = engine_run(vo, seed, scene)
+            inits, problems, valid, stereo = probe.read()
+            row.update({"init": inits, "pose_gn_problems": problems, "valid_rows_a_problem": valid,
+                        "stereo_rows_a_problem": stereo, "host_ms_a_frame_median": statistics.median(per_frame)})
+            rows.append(row)
+    finally:
+        probe.close()
+    launches = dict(cuda_ext.LAUNCHES)
+    steps, problems = cuda_pose.steps_run()
+    mean = statistics.mean(r["ate"] if r["ate"] is not None else float("nan") for r in rows)
+    emit({"phase": "metric", "protocol": protocol, "path": "kernels" if kernels else "plain",
+          "float32_point_side": float32_point_side, "frames": ENGINE_FRAMES, "seeds": list(scenes), "runs": rows,
+          "tracked_frames": vo.tracker.timer.summary().get("track", {}).get("count", 0), "mean_ate": mean,
+          "max_ate": METRIC_MAX_ATE[protocol], "launches": launches,
+          "pose_gn_mean_steps": steps / max(problems, 1), "card": smi})
+    vo.shutdown()
+    torch.cuda.synchronize()
+    return rows, launches
+
+
+def metric_check(protocol, rows, what, launches=None):
+    """The protocol's gate of ``tests/test_accuracy_gates.py`` (no failed
+    seed, mean ATE under the bound) and the health of each run: the setup's
+    own init fired; on the kernels every kernel of the path launched."""
+    setup = protocol.split("/")[0]
+    gate = METRIC_MAX_ATE[protocol]
+    mean = check_engine_runs(rows, f"{protocol}, {what}", max_lost=MAX_FRAMES_LOST if launches is not None else None,
+                             max_ate=gate)
+    if not mean < gate:
+        raise AssertionError(f"{protocol} ({what}): mean ATE {mean} (< {gate})")
+    for r in rows:
+        if r["init"] != [f"_init_{setup}"]:
+            raise AssertionError(f"{protocol} ({what}, seed {r['seed']}): init {r['init']}, not _init_{setup}")
+    if launches is not None:
+        missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{protocol}: kernels of the path never launched: {missing}")
+    return mean
+
+
+def rgbd_long(smi, seeds=ENGINE_SEEDS, kernels=True, float32_point_side=False):
+    """``scripts/bench_accuracy.py --long`` for ``rgbd/long`` with matcher
+    ``hybrid`` on the kernels (or their plain versions), launch counts
+    reset just before: per seed the online ATE, ``global_optimize()`` and
+    the ATE after it (both without scale correction), the init that fired,
+    and the full BA's size and resolved assembly (``"auto"``: ``"scatter"``
+    below 128M indicator elements, ``"sorted"`` above)."""
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    protocol = "rgbd/long"
+    vo = metric_engine(protocol, kernels, float32_point_side=float32_point_side)
+    probe = MetricProbe(vo)
+    cuda_ext.LAUNCHES.clear()
+    rows = []
+    try:
+        for seed in seeds:
+            row = long_run(vo, seed, metric_scene(protocol, seed))
+            row["init"] = probe.read()[0]
+            rows.append(row)
+            emit({"phase": "metric", "protocol": protocol, "path": "kernels" if kernels else "plain",
+                  "float32_point_side": float32_point_side, **row})
+    finally:
+        probe.close()
+    launches = dict(cuda_ext.LAUNCHES)
+    vo.shutdown()
+    failed = [r["seed"] for r in rows if r["online_ate"] is None]
+    online = statistics.mean(r["online_ate"] for r in rows if r["online_ate"] is not None) if len(failed) < len(rows) else None
+    pgo = statistics.mean(r["pgo_ate"] for r in rows)
+    full_ba = {r["seed"]: r["full_ba"] for r in rows}
+    emit({"phase": "metric_summary", "protocol": protocol, "seeds": list(seeds), "frames": LONG_FRAMES,
+          "size": [LONG_H, LONG_W], "online_mean_ate": online, "pgo_mean_ate": pgo, "failed_seeds": failed,
+          "gate": {"online": RGBD_LONG_MAX_ONLINE, "pgo": RGBD_LONG_MAX_PGO}, "full_ba": full_ba,
+          "full_ba_past_the_128M_line": [s for s, f in full_ba.items() if f and f["assembly"] == "sorted"],
+          "launches": launches, "card": smi})
+    if failed:
+        raise AssertionError(f"{protocol}: seeds {failed} emitted fewer than 5 poses (failed runs)")
+    if not (online < RGBD_LONG_MAX_ONLINE and pgo < RGBD_LONG_MAX_PGO):
+        raise AssertionError(f"{protocol}: online mean ATE {online} (< {RGBD_LONG_MAX_ONLINE}), after global "
+                             f"optimization {pgo} (< {RGBD_LONG_MAX_PGO})")
+    for r in rows:
+        if r["init"] != ["_init_rgbd"]:
+            raise AssertionError(f"{protocol} (seed {r['seed']}): init {r['init']}, not _init_rgbd")
+        if r["full_ba"] is None:
+            raise AssertionError(f"{protocol} (seed {r['seed']}): global_optimize ran no full BA")
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+    if kernels and missing:
+        raise AssertionError(f"{protocol}: kernels of the path never launched: {missing}")
+    return launches
+
+
+def metric_seeds(protocol, seeds, kernels=True, float32_point_side=False):
+    """One metric protocol over more scene seeds than its gate's three
+    (``--metric-seeds``), under deterministic algorithms: the seed-to-seed
+    spread a 3-seed gate has to stand. ``float32_point_side`` gives the
+    RGB-D BAs the exact float32 point side of the monocular and stereo
+    setups in place of the JAX package's bf16 one."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if protocol == "rgbd/long":
+        return rgbd_long(None, seeds, kernels, float32_point_side)
+    rows, _ = metric_runs(protocol, kernels, {s: metric_scene(protocol, s) for s in seeds}, None, float32_point_side)
+    return metric_check(protocol, rows, "kernels" if kernels else "plain versions")
+
+
+def metric_phase(smi):
+    """``stereo/3d`` and ``rgbd/3d`` on the kernels and on their plain
+    versions, then ``rgbd/long`` on the kernels, under PyTorch's
+    deterministic algorithms. Pose GN must be fed stereo rows on
+    ``stereo/3d``. Returns each protocol's launch counts on the kernels."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    launches = {}
+    for protocol in METRIC_MAX_ATE:
+        scenes = {seed: metric_scene(protocol, seed) for seed in ENGINE_SEEDS}
+        rows, launches[protocol] = metric_runs(protocol, True, scenes, smi)
+        plain_rows, plain_launches = metric_runs(protocol, False, scenes, smi)
+        emit({"phase": "metric_summary", "protocol": protocol, "max_ate": METRIC_MAX_ATE[protocol],
+              "mean_ate": {"kernels": statistics.mean(r["ate"] or float("nan") for r in rows),
+                           "plain": statistics.mean(r["ate"] or float("nan") for r in plain_rows)}})
+        metric_check(protocol, rows, "kernels", launches[protocol])
+        if plain_launches:
+            raise AssertionError(f"{protocol} with kernels=False launched kernels: {plain_launches}")
+        metric_check(protocol, plain_rows, "plain versions")
+        if protocol.startswith("stereo") and not min(r["stereo_rows_a_problem"] for r in rows) > 0:
+            raise AssertionError(f"{protocol}: a run fed pose GN no stereo row")
+    launches["rgbd/long"] = rgbd_long(smi)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2028,9 +2318,17 @@ def run_engine(vo, frames):
     return per_frame, stamps, poses, init_at
 
 
-def emitted_ate(stamps, poses, T_wc):
-    """Scale-corrected ATE of the emitted trajectory, the accuracy protocol of
-    ``scripts/bench_accuracy.py`` (mono): None below 5 poses, a failed run."""
+def needs_scale(vo):
+    """Only the monocular setup lacks metric scale: its ATE is scale-corrected."""
+    from ur_mvo_tpu_torch.config import SensorSetup
+
+    return vo.setup == SensorSetup.MONO
+
+
+def emitted_ate(stamps, poses, T_wc, correct_scale):
+    """ATE of the emitted trajectory, the accuracy protocol of
+    ``scripts/bench_accuracy.py``: scale-corrected for mono, not for the
+    metric setups; None below 5 poses, a failed run."""
     import numpy as np
 
     from ur_mvo_tpu_torch.utils.metrics import ate_rmse
@@ -2039,7 +2337,7 @@ def emitted_ate(stamps, poses, T_wc):
         return None
     idx = np.clip((np.asarray(stamps) * FPS).round().astype(int), 0, len(T_wc) - 1)
     pos = np.stack([np.asarray(p.translation) for p in poses])
-    return float(ate_rmse(pos, T_wc[idx][:, :3, 3], align=True, correct_scale=True))
+    return float(ate_rmse(pos, T_wc[idx][:, :3, 3], align=True, correct_scale=correct_scale))
 
 
 def keyframe_ate(vo, T_wc):
@@ -2049,7 +2347,7 @@ def keyframe_ate(vo, T_wc):
 
     kts, kpos, _ = vo.keyframe_trajectory()
     idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, len(T_wc) - 1)
-    return float(ate_rmse(kpos, T_wc[idx][:, :3, 3], align=True, correct_scale=True)), kts, kpos
+    return float(ate_rmse(kpos, T_wc[idx][:, :3, 3], align=True, correct_scale=needs_scale(vo))), kts, kpos
 
 
 def engine_scene(seed):
@@ -2073,7 +2371,7 @@ def engine_run(vo, seed, scene=None):
     row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": n_kf,
            "keyframe_frame_ids": [int(round(t * FPS)) for t in kts], "frames_lost": vo.tracker.frames_lost,
            "relocalizations": vo.tracker.relocalizations, "poses_emitted": len(poses), "poses_finite": all(np.isfinite(p.matrix()).all() for p in poses),
-           "ate": emitted_ate(stamps, poses, T_wc), "keyframe_ate": kf_ate}
+           "ate": emitted_ate(stamps, poses, T_wc, needs_scale(vo)), "keyframe_ate": kf_ate}
     return row, per_frame, kpos
 
 
@@ -2101,7 +2399,7 @@ def engine_sweep(seeds, repeats=2):
         emit(row)
 
 
-def check_engine_runs(rows, what, max_lost=None):
+def check_engine_runs(rows, what, max_lost=None, max_ate=MAX_ATE):
     """The accuracy gate of ``tests/test_accuracy_gates.py`` for one matcher
     column (no failed seed, mean ATE under the bound) and the health of each
     run."""
@@ -2118,8 +2416,8 @@ def check_engine_runs(rows, what, max_lost=None):
         if max_lost is not None and r["frames_lost"] > max_lost:
             raise AssertionError(f"{where}: {r['frames_lost']} frames lost (<= {max_lost})")
     mean = statistics.mean(r["ate"] for r in rows)
-    if not mean <= MAX_ATE:
-        raise AssertionError(f"engine ({what}): mean ATE {mean} over seeds {ENGINE_SEEDS} (<= {MAX_ATE})")
+    if not mean <= max_ate:
+        raise AssertionError(f"engine ({what}): mean ATE {mean} over seeds {ENGINE_SEEDS} (<= {max_ate})")
     return mean
 
 
@@ -2303,6 +2601,17 @@ def main() -> int:
         ba_kernels_phase(smi)
         print(smi, flush=True)
         return 0
+    if "--metric-seeds" in sys.argv:
+        i = sys.argv.index("--metric-seeds")
+        try:
+            metric_seeds(sys.argv[i + 1], [int(x) for x in sys.argv[i + 2].split(",")],
+                         kernels="--plain" not in sys.argv, float32_point_side="--float32-point-side" in sys.argv)
+        except AssertionError as e:
+            emit({"phase": "metric", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
     if "--only-ba" in sys.argv:
         torch.use_deterministic_algorithms(True, warn_only=True)
         _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
@@ -2336,6 +2645,8 @@ def main() -> int:
     timed("ba", ba_phase)
     launches = timed("engine", engine_phase, smi, on_failure={})
     long_launches, long_shape = timed("long", long_phase, smi, on_failure=({}, BA_KERNEL_SHAPES[0]))
+    metric_launches = timed("metric", metric_phase, smi, on_failure={})
+    by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches}
     rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
     # the sorted kernel's launches are those of global_optimize's full BA;
     # the unsorted kernel runs only where "pallas" is asked for
@@ -2355,6 +2666,7 @@ def main() -> int:
             "launches": launches.get(name, 0), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "launches_by_path": {path: counts.get(name, 0) for path, counts in by_path.items()},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,0 +1,212 @@
+#!/usr/bin/env python
+"""The ``rgbd/long`` protocol's windowed BA in the PyTorch port and in the
+JAX package, on the CPU, and the JAX package's ATE over many scene seeds.
+
+An RGB-D keyframe stores its features as mono rows (``u_right = -1``): the
+depth seeds new map points and enters no residual. A window BA whose only
+fixed keyframe is the first (``frame id <= 2``) then has a free scale, and
+an LM step moves along it by what rounding leaves in the gradient there,
+over the damping alone. The JAX package sums the point side of bf16
+summands (its one-hot matmul); the port's RGB-D BAs do the same
+(``BAConfig.bf16_point_side``), its monocular and stereo BAs sum exact
+float32 summands.
+
+Run from the root of the repository (JAX on the CPU, the port's plain
+versions on the CPU):
+
+    JAX_PLATFORMS=cpu python scripts/metric_gauge.py --ba 11 16
+    JAX_PLATFORMS=cpu python scripts/metric_gauge.py --reference rgbd/long 11,12,13
+
+``--ba SEED FRAME`` drives the port's ``rgbd/long`` engine with exact
+float32 point-side summands over scene SEED up to keyframe FRAME (its first
+frames; about a minute, one CPU thread), captures the window
+BA that FRAME's insertion runs, and solves that one problem with the port's
+BA in float32 (exact point-side summands, and bf16 ones as the RGB-D setup
+takes them), in float64, and with the JAX package's (float32),
+printing each keyframe's position, whether it is fixed, and the truth; and
+the largest relative error of each normal term at the given state, the
+port's exact float32 assembly and the JAX package's, against the port's
+float64. ``--reference CELL SEEDS`` runs ``scripts/bench_accuracy.py``'s
+protocol for ``rgbd/3d`` or ``rgbd/long`` (matcher ``hybrid``) in the JAX
+package per scene seed: the ATE without scale correction (for
+``rgbd/long`` online and after ``global_optimize``) and the keyframes, one
+JSON line a seed (``rgbd/long``: ~7 min a seed; the port's own sweep is
+``chip_smoke.py --metric-seeds`` on the card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+FPS = 30.0
+
+
+def port_engine():
+    import chip_smoke
+
+    # the exact float32 point side, the numerics whose windows ran off
+    return chip_smoke, chip_smoke.metric_engine("rgbd/long", kernels=False, device="cpu", float32_point_side=True)
+
+
+def jax_engine(cell):
+    import bench_accuracy as ba
+    from ur_mvo_tpu.camera import make_pinhole
+    from ur_mvo_tpu.config import SensorSetup
+    from ur_mvo_tpu.engine import UR_MVO
+
+    W, H, FX = (640, 480, 520.0) if cell == "rgbd/long" else (ba.W, ba.H, ba.FX)
+    return UR_MVO(ba._production_cfg("hybrid", W=W, H=H, long_run=cell == "rgbd/long"), SensorSetup.RGBD,
+                  camera=make_pinhole(W, H, FX, FX, W / 2, H / 2))
+
+
+def ba_at(seed, frame):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu import camera as jcamera
+    from ur_mvo_tpu import config as jconfig
+    from ur_mvo_tpu.ops import ba as jba
+    from ur_mvo_tpu.runtime.backend import Backend as JaxBackend
+    from ur_mvo_tpu_torch.ops import ba as tba
+
+    cs, vo = port_engine()
+    frames, T_wc = cs.metric_scene("rgbd/long", seed)
+    backend = vo.tracker.backend
+    F, P, O = backend._ba_dims
+    captured = []
+    solve = backend._ba
+
+    def capture(flat, cfg=None):
+        fp = flat[: 14 * F].reshape(F, 14)
+        n = int(fp[:, 12].sum())
+        st = backend.store
+        slots = st.keyframe_slots()
+        # the window's keyframes by their pre-BA poses
+        d = np.abs(st.kf_t[slots][None] - fp[:n, None, 9:12]).sum(-1) + np.abs(
+            st.kf_R[slots].reshape(-1, 9)[None] - fp[:n, None, 0:9]).sum(-1)
+        fids = st.kf_frame_id[slots[d.argmin(1)]].tolist()
+        captured.append((np.array(flat), fids, fp[:n, 13] > 0.5))
+        return solve(flat, cfg)
+
+    backend._ba = capture
+    vo.reset()
+    for f in frames[: frame + 1]:
+        vo.process(f)
+    flat, fids, fixed = captured[-1]
+    if fids[-1] != frame:
+        raise SystemExit(f"frame {frame} inserted no keyframe (last window BA: keyframe {fids[-1]})")
+    n = len(fids)
+
+    def unpack_t(arr):
+        return np.asarray(arr, np.float64)[9 * F : 12 * F].reshape(F, 3)[:n]
+
+    def problem(mod, x, index):
+        fp, pp, op = x[: 14 * F].reshape(F, 14), x[14 * F : 14 * F + 4 * P].reshape(P, 4), x[14 * F + 4 * P :].reshape(O, 6)
+        return mod.BAProblem(R_wc=fp[:, 0:9].reshape(-1, 3, 3), t_wc=fp[:, 9:12], frame_valid=fp[:, 12] > 0.5,
+                             frame_fixed=fp[:, 13] > 0.5, X=pp[:, 0:3], point_valid=pp[:, 3] > 0.5,
+                             obs_frame=index(op[:, 0]), obs_point=index(op[:, 1]), obs_uv=op[:, 2:5],
+                             obs_valid=op[:, 5] > 0.5)
+
+    def port_problem(dtype):
+        return problem(tba, torch.from_numpy(flat).to(dtype), lambda a: a.to(torch.int64))
+
+    def jax_problem():
+        return problem(jba, jnp.asarray(flat), lambda a: a.astype(jnp.int32))
+
+    cfg, cam = vo.config, vo.camera
+    exact_cfg = backend._ba_cfg._replace(bf16_point_side=False)
+
+    def port_solve(dtype, bf16_point_side=False):
+        return tba.bundle_adjust(port_problem(dtype), cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+                                 exact_cfg._replace(bf16_point_side=bf16_point_side), plain=True).t_wc[:n]
+
+    jb = JaxBackend(jcamera.make_pinhole(cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy),
+                    jconfig.BackendConfig(**dataclasses.asdict(cfg.backend)),
+                    jconfig.OptimizationConfig(**dataclasses.asdict(cfg.backend_optimization)),
+                    keypoints_per_frame=cfg.superpoint.capacity)
+    # the normal terms at the given state: float32 against float64
+    terms = {}
+    for dtype in (torch.float32, torch.float64):
+        prob = port_problem(dtype)
+        R_cw, t_cw = tba._invert_poses(prob.R_wc, prob.t_wc)
+        slot = tba._free_rank(prob, backend._ba_cfg.max_free_frames)[prob.obs_frame]
+        terms[dtype] = [x.double().numpy() for x in tba.build_normal_terms(
+            prob, R_cw, t_cw, prob.X, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, exact_cfg, prob.obs_valid.to(dtype),
+            True, obs_slot=slot)[:5]]
+    jp = jax_problem()
+    jR, jt = jba._invert_poses(jp.R_wc, jp.t_wc)
+    jcfg = jba.BAConfig(**{k: v for k, v in exact_cfg._asdict().items() if k != "bf16_point_side"})
+    jterms = [np.asarray(x, np.float64) for x in jax.jit(
+        lambda p, R, t: jba.build_normal_terms_matmul(p, R, t, p.X, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, jcfg,
+                                                     p.obs_valid.astype(jnp.float32), True))(jp, jR, jt)[:5]]
+    ref = terms[torch.float64]
+    rel = {name: {"port_float32": float(np.abs(terms[torch.float32][i] - ref[i]).max() / np.abs(ref[i]).max()),
+                  "jax_float32": float(np.abs(jterms[i] - ref[i]).max() / np.abs(ref[i]).max())}
+           for i, name in enumerate(("H_cc", "b_c", "H_pp", "b_p", "U"))}
+    rows = {"keyframe": fids, "fixed": fixed.tolist(), "truth": T_wc[fids][:, :3, 3].tolist(),
+            "before": flat[: 14 * F].reshape(F, 14)[:n, 9:12].tolist(),
+            "port_float32": port_solve(torch.float32).double().numpy().tolist(),
+            "port_float64": port_solve(torch.float64).numpy().tolist(),
+            # the point side's summands rounded to bf16, as the JAX package's
+            # window assembly rounds them (its one-hot matmul)
+            "port_float32_bf16_point_side": port_solve(torch.float32, True).double().numpy().tolist(),
+            "jax_float32": unpack_t(jb._ba(jnp.asarray(flat))).tolist()}
+    print(json.dumps({"seed": seed, "frame": frame, **rows, "normal_terms_relative_error": rel}))
+
+
+def reference_runs(cell, seeds):
+    import bench_accuracy as ba
+    import numpy as np
+
+    from ur_mvo_tpu.utils.metrics import ate_rmse
+    from ur_mvo_tpu.utils.synthscene import out_and_back_trajectory, render_sequence
+
+    long_run = cell == "rgbd/long"
+    W, H, FX, N = (640, 480, 520.0, 120) if long_run else (ba.W, ba.H, ba.FX, 24)
+    vo = jax_engine(cell)
+    for seed in seeds:
+        images, T_wc, depths = render_sequence(N, H, W, FX, seed=seed, poses=out_and_back_trajectory(N) if long_run
+                                               else None, **ba.SCENES["3d"])[:3]
+        vo.reset()
+        ts, pos = ba._run_sequence(vo, images, None, depths, "rgbd")
+        row = {"cell": cell, "seed": seed, "ate": None}
+        if len(ts) >= 5:
+            idx = np.clip((ts * FPS).round().astype(int), 0, N - 1)
+            row["ate"] = float(ate_rmse(pos, T_wc[idx][:, :3, 3], align=True, correct_scale=False))
+        row["keyframes"] = vo.tracker.backend.store.num_keyframes()
+        if long_run:
+            vo.tracker.backend.global_optimize()
+            kts, kpos, _ = vo.keyframe_trajectory()
+            kidx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, N - 1)
+            row["pgo_ate"] = float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True, correct_scale=False))
+        print(json.dumps(row), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ba", nargs=2, type=int, metavar=("SEED", "FRAME"))
+    ap.add_argument("--reference", nargs=2, metavar=("CELL", "SEEDS"), help="rgbd/3d or rgbd/long, comma list")
+    args = ap.parse_args()
+    import jax
+    import torch
+
+    jax.config.update("jax_platforms", "cpu")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.set_num_threads(1)  # the summation order of the CPU reductions
+    if args.ba:
+        ba_at(*args.ba)
+    if args.reference:
+        reference_runs(args.reference[0], [int(s) for s in args.reference[1].split(",")])
+
+
+if __name__ == "__main__":
+    main()

@@ -118,6 +118,36 @@ def test_normal_terms_match_jax_scatter(window, use_huber):
         np.testing.assert_allclose(y / scale, x / scale, atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("use_huber", [True, False])
+def test_bf16_point_side_matches_jax_matmul(window, use_huber):
+    """``BAConfig.bf16_point_side`` (the RGB-D setup) rounds
+    the point side's summands to bf16 as the JAX package's window route
+    (its one-hot matmul) does: >= 99% of every term's entries agree with
+    that route to 1e-6 of the term's scale (the rest: a summand that one
+    float32 ulp rounds to the other bf16 neighbour), the frame side and the
+    cost to 1e-5. The exact float32 summands agree so on < 60% of the
+    point side's entries."""
+    fields, _, _ = window
+    jp, tp = _jax_problem(fields), tweights.ba_problem_from_numpy(fields)
+    jcfg = jba.BAConfig(max_free_frames=8)
+    Rj, tj = jba._invert_poses(jp.R_wc, jp.t_wc)
+    ref = jax.jit(lambda R, t, X, a: jba.build_normal_terms_matmul(jp, R, t, X, *GEOM, jcfg, a, use_huber))(
+        Rj, tj, jp.X, jp.obs_valid.astype(jnp.float32))
+    Rt, tt = tba._invert_poses(tp.R_wc, tp.t_wc)
+    active = tp.obs_valid.to(torch.float32)
+    out = tba.build_normal_terms(tp, Rt, tt, tp.X, *GEOM, tba.BAConfig(max_free_frames=8, bf16_point_side=True),
+                                 active, use_huber)
+    exact = tba.build_normal_terms(tp, Rt, tt, tp.X, *GEOM, tba.BAConfig(max_free_frames=8), active, use_huber)
+    for name, x, y, z in zip(NAMES, ref, out, exact):
+        x, y, z = np.asarray(x), y.numpy(), z.numpy()
+        scale = max(np.abs(x).max(), 1.0)
+        assert (np.abs(y - x) <= 1e-6 * scale).mean() >= 0.99, name
+        if name in ("H_pp", "b_p", "U"):
+            assert (np.abs(z - x) <= 1e-6 * scale).mean() < 0.6, name
+        else:
+            np.testing.assert_allclose(y / scale, x / scale, atol=1e-5, err_msg=name)
+
+
 def test_solve_schur_matches_jax(window):
     fields, _, _ = window
     jp = _jax_problem(fields)

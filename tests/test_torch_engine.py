@@ -204,9 +204,10 @@ def _cam():
 def test_what_the_slice_leaves_out_raises():
     cam = _cam()
     oracle = OracleExtractor(np.zeros((4, 3), np.float32), cam, capacity=16, device="cpu")
+    # the metric setups are ported: they build on the CPU
     for setup in (tconfig.SensorSetup.STEREO, tconfig.SensorSetup.RGBD):
-        with pytest.raises(NotImplementedError, match="monocular"):
-            UR_MVO(tconfig.Configs(), setup, camera=cam, extractor=oracle, device="cpu")
+        vo = UR_MVO(tconfig.Configs(), setup, camera=cam, extractor=oracle, device="cpu")
+        assert vo.setup == setup and vo.tracker.device.type == "cpu"
     cfg = tconfig.Configs()
     cfg.local_map_tracking.enabled = True
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -215,19 +216,12 @@ def test_what_the_slice_leaves_out_raises():
     cfg.superpoint.capacity = 16
     vo = UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam, extractor=oracle, device="cpu")
     bank = oracle.extract_with_pose(np.eye(4, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="stereo"):
-        vo.tracker.process(bank, 0.0, bank_right=bank)
-    with pytest.raises(NotImplementedError, match="RGB-D"):
-        vo.tracker.process(bank, 0.0, depth_lookup=lambda k: k[:, 0])
     with pytest.raises(NotImplementedError, match="precomputed"):
         vo.tracker.process(bank, 0.0, precomputed_match=object())
     with pytest.raises(NotImplementedError):
         vo.tracker.process_chunk([], [])
     with pytest.raises(NotImplementedError):
         vo.tracker.adopt_map()
-    frame = tcomp.Frame(image=tcomp.Image(np.zeros((48, 64), np.uint8), 0.0), depth_map=tcomp.DepthMap(np.zeros((48, 64))))
-    with pytest.raises(NotImplementedError, match="RGB-D"):
-        vo.process(frame)
     assert not hasattr(vo.tracker.backend.store, "save_snapshot")
 
 
@@ -237,8 +231,9 @@ def test_engine_tracker_backend_default_to_cuda():
     if torch.cuda.is_available():
         assert Backend(cam, cfg.backend, cfg.backend_optimization).device.type == "cuda"
         return
-    with pytest.raises(RuntimeError, match="CUDA"):
-        UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam)
+    for setup in (tconfig.SensorSetup.MONO, tconfig.SensorSetup.STEREO, tconfig.SensorSetup.RGBD):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            UR_MVO(cfg, setup, camera=cam)
     with pytest.raises(RuntimeError, match="CUDA"):
         Backend(cam, cfg.backend, cfg.backend_optimization)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,14 +1,14 @@
-"""Public engine API (port of ``ur_mvo_tpu.engine``, monocular slice).
+"""Public engine API (port of ``ur_mvo_tpu.engine``).
 
-``UR_MVO(config, setup, device=...)`` with ``process(Frame) ->
+``UR_MVO(config, setup, device=...)`` for the monocular, stereo and RGB-D
+setups, with ``process(Frame) ->
 List[Pose] | None``, SLERP interpolation of the frames between keyframes,
 ``process_directory``, ``reset``, ``shutdown``. Poses come back
 synchronously from the tracker. ``device`` defaults to ``cuda`` and raises
 without it; the tests pass ``device="cpu"``.
 
-Not ported yet (raising): stereo and RGB-D setups, map snapshots, the
-chunked sequence program (``process_sequence`` feeds ``process`` frame by
-frame).
+Not ported yet: map snapshots, the chunked sequence program
+(``process_sequence`` feeds ``process`` frame by frame).
 """
 
 from __future__ import annotations
@@ -63,8 +63,6 @@ class UR_MVO:
         self._build(config, setup, camera, extractor)
 
     def _build(self, config, setup, camera=None, extractor=None):
-        if setup != Setup.MONO:
-            raise NotImplementedError(f"UR_MVO(setup={setup}): only the monocular setup is ported yet")
         if isinstance(config, Configs):
             cfg = config
         elif isinstance(config, str):
@@ -98,8 +96,8 @@ class UR_MVO:
         self.last_pose: Optional[Pose] = None
         self.accumulated_samples = 0
         self._trajectory: List[tuple] = []  # (timestamp, Pose)
-        # (frame, bank) of a frame whose extraction was queued ahead of
-        # time — see process(next_data=...)
+        # (frame, bank, bank_right) of a frame whose extraction was queued
+        # ahead of time — see process(next_data=...)
         self._prefetched: Optional[tuple] = None
 
     # ------------------------------------------------------------------
@@ -109,11 +107,19 @@ class UR_MVO:
         synchronizing: CUDA work is asynchronous, so the host returns while
         the device computes, which is what lets frame-ahead prefetching
         (process(next_data=...)) overlap device inference with host
-        bookkeeping."""
+        bookkeeping. Returns (bank, bank_right); the right bank exists for
+        stereo frames only, rectified with the right camera's map."""
+        stereo = self.setup == Setup.STEREO
         if hasattr(self.extractor, "extract_with_pose") and "T_wc" in data.meta:
-            return self.extractor.extract_with_pose(data.meta["T_wc"])
+            bank = self.extractor.extract_with_pose(data.meta["T_wc"])
+            bank_right = self.extractor.extract_with_pose(data.meta["T_wc"], right=True) if stereo else None
+            return bank, bank_right
         mask = data.mask.get_mask() if data.mask is not None else None
-        return self.extractor.extract(data.image.get_image(), mask)
+        bank = self.extractor.extract(data.image.get_image(), mask)
+        bank_right = None
+        if stereo and data.right_image is not None:
+            bank_right = self.extractor.extract(data.right_image.get_image(), mask, right=True)
+        return bank, bank_right
 
     def process(self, data: Frame, next_data: Optional[Frame] = None) -> Optional[List[Pose]]:
         """Feed one frame; returns interpolated poses when the backend
@@ -122,21 +128,39 @@ class UR_MVO:
         ``next_data``: optional lookahead frame — its extraction is queued
         on the device *before* this frame's tracking/host bookkeeping
         runs, so frame i+1's inference overlaps frame i's host work. The
-        next ``process`` call picks the prefetched bank up by the Frame
+        next ``process`` call picks the prefetched banks up by the Frame
         object's identity."""
-        if data.right_image is not None or data.depth_map is not None:
-            raise NotImplementedError("UR_MVO.process: stereo and RGB-D frames are not ported yet")
         ts = data.image.get_timestamp()
+        depth_lookup = self._make_depth_lookup(data)
         if self._prefetched is not None and self._prefetched[0] is data:
-            bank = self._prefetched[1]
+            bank, bank_right = self._prefetched[1:]
         else:
-            bank = self._extract_banks(data)
+            bank, bank_right = self._extract_banks(data)
         self._prefetched = None
         if next_data is not None:
-            self._prefetched = (next_data, self._extract_banks(next_data))
+            self._prefetched = (next_data, *self._extract_banks(next_data))
 
-        pose_mat = self.tracker.process(bank, ts)
+        pose_mat = self.tracker.process(bank, ts, depth_lookup, bank_right=bank_right)
         return self._emit(ts, pose_mat)
+
+    def _make_depth_lookup(self, data: Frame):
+        """RGB-D: keypoints (K, 2) -> depth (K,) read at their pixels. A
+        uint8 depth image maps a pixel p in [50, 200] to 100 / p (0 outside
+        it); a metric depth image passes through."""
+        if self.setup != Setup.RGBD or data.depth_map is None:
+            return None
+        depth_img = data.depth_map.get_depth_map()
+
+        def depth_lookup(kpts, _d=depth_img):
+            c = np.clip(kpts[:, 0].astype(int), 0, _d.shape[1] - 1)
+            r = np.clip(kpts[:, 1].astype(int), 0, _d.shape[0] - 1)
+            raw = _d[r, c].astype(np.float32)
+            if _d.dtype == np.uint8:
+                ok = (raw >= 50) & (raw <= 200)
+                return np.where(ok, 100.0 / (raw + 1e-5), 0.0)
+            return raw
+
+        return depth_lookup
 
     def _emit(self, ts, pose_mat) -> Optional[List[Pose]]:
         """Keyframe-pose emission + SLERP fill of the frames in between."""

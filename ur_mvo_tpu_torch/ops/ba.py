@@ -27,6 +27,10 @@ equations are assembled by one of three routes (:func:`resolve_assembly`):
   ``point_reduce`` kernel (TPU kernel ``pallas_ba.py:38``), with atomics.
 
 The frame side (``H_cc``, ``b_c``) stays exact float32 on every route.
+``BAConfig.bf16_point_side`` rounds the ``"scatter"`` route's point-side
+summands to bf16 before its float32 sums: the JAX package's window
+numerics (its one-hot matmul, ``ur_mvo_tpu/ops/ba.py:278-284``), which
+the RGB-D setup takes (``runtime/backend.py``).
 
 The LM loop runs its fixed number of iterations with every update masked
 once the phase has converged (the JAX ``while_loop`` stops there; the
@@ -90,6 +94,10 @@ class BAConfig(NamedTuple):
     # Static bound on simultaneously-optimized (non-fixed) frames: sizes
     # the camera system, the coupling tensor U and the reduced solve.
     max_free_frames: int = 16
+    # "scatter" only: round the point side's summands (U, H_pp, b_p) to
+    # bf16 before the float32 sums, as the JAX package's one-hot matmul
+    # does; the kernel routes always do
+    bf16_point_side: bool = False
 
 
 def _invert_poses(R_wc, t_wc):
@@ -235,7 +243,8 @@ def build_normal_terms(prob: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: 
     (computed here when not given). The frame side is an exact float32
     ``index_add_``. ``reduce``: the point side's reducer, ``(A, Vp,
     obs_point, obs_slot, P, FF) -> (P, FF*18 + 12)`` (``ops/cuda_ba.py``);
-    None sums it in exact float32 with ``index_add_`` (``"scatter"``).
+    None sums it in float32 with ``index_add_`` (``"scatter"``), of bf16
+    summands where ``cfg.bf16_point_side``.
     Returns (H_cc (FF, 6, 6), b_c (FF, 6), H_pp (P, 3, 3), b_p (P, 3),
     U (P, FF, 6, 3), cost).
     """
@@ -247,6 +256,8 @@ def build_normal_terms(prob: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, bf, cfg: 
     Hb_c = torch.zeros((FF, 42), dtype=Vc.dtype, device=Vc.device).index_add_(0, obs_slot, Vc)
     H_cc, b_c = Hb_c[:, :36].reshape(FF, 6, 6), -Hb_c[:, 36:]
     if reduce is None:
+        if cfg.bf16_point_side:
+            Vp, A = Vp.to(torch.bfloat16).to(Vp.dtype), A.to(torch.bfloat16).to(A.dtype)
         Hb_p = torch.zeros((P, 12), dtype=Vp.dtype, device=Vp.device).index_add_(0, prob.obs_point, Vp)
         U = torch.zeros((P * FF, 18), dtype=A.dtype, device=A.device).index_add_(0, prob.obs_point * FF + obs_slot, A)
         return H_cc, b_c, Hb_p[:, :9].reshape(P, 3, 3), -Hb_p[:, 9:], U.reshape(P, FF, 6, 3), cost

@@ -44,7 +44,12 @@ class Backend:
     """``kernels=False`` runs the kernels' plain versions on any device (the
     on-card comparison asks for it; the main path never does). ``timer``
     holds the parts of ``global_optimize``; ``last_full_ba`` the size and
-    assembly of the last full BA."""
+    assembly of the last full BA. ``bf16_point_side``: every BA rounds its
+    point side's summands to bf16 (``BAConfig.bf16_point_side``), the JAX
+    package's window numerics. The tracker asks for it in the RGB-D setup:
+    its keyframes hold mono rows, so a window with one fixed keyframe
+    leaves the scale free, and with exact float32 summands the RGB-D runs
+    drift along it more than the JAX package's do."""
 
     def __init__(
         self,
@@ -55,6 +60,7 @@ class Backend:
         keypoints_per_frame: int = 1024,
         device="cuda",
         kernels: bool = True,
+        bf16_point_side: bool = False,
     ):
         self.device = resolve_device(device)
         self._plain = not kernels
@@ -78,6 +84,7 @@ class Backend:
             # fix-older-than horizon (only keyframes within the last
             # fix_older_than frame ids stay free), +1 for the new frame
             max_free_frames=((min(backend_cfg.window_opt_frames, backend_cfg.fix_older_than) + 1 + 7) // 8) * 8,
+            bf16_point_side=bf16_point_side,
         )
         F_pad = self._round_up(backend_cfg.window_opt_frames + backend_cfg.window_fixed_frames + 1, 4)
         self._ba_dims = (F_pad, backend_cfg.ba_max_points, backend_cfg.ba_max_observations)
@@ -90,7 +97,7 @@ class Backend:
         # the summed point residuals.
         self._refine_cfg = BAConfig(
             chi2_mono=opt_cfg.mono_point, chi2_stereo=opt_cfg.stereo_point,
-            iters_phase1=10, iters_phase2=5, tol=0.0, max_free_frames=8,
+            iters_phase1=10, iters_phase2=5, tol=0.0, max_free_frames=8, bf16_point_side=bf16_point_side,
         )
         self.K_mat = torch.as_tensor(np.asarray(camera.intrinsic_matrix(), np.float32), device=self.device)
         self._loop_cooldown = 0
@@ -1011,6 +1018,7 @@ class Backend:
             # full BA optimizes (almost) every keyframe: the free-frame
             # bound must cover them all
             max_free_frames=F,
+            bf16_point_side=self._ba_cfg.bf16_point_side,
         )
         self.last_full_ba = {
             "keyframes": n, "points": len(mp_sel), "observations": len(pi), "padded": [F, P, O],

@@ -3,19 +3,20 @@
 
 ``extract``: rectify remap -> SuperPoint (fused stage kernels, stage 4,
 heads, NMS) -> top-K keypoint selection -> descriptor sampling.
-``match``: SuperGlue (attention kernel in every GNN layer, Sinkhorn
-kernel) -> mutual decode, with the mutual-NN min-match floor -> 8-point
-fundamental RANSAC outlier rejection. Both stay on the device: no host
-sync inside either call.
+``extract(right=True)`` rectifies with the right camera's map when the
+calibration ships one (else the left map). ``match``: SuperGlue (attention
+kernel in every GNN layer, Sinkhorn kernel) -> mutual decode, with the
+mutual-NN min-match floor; or ``hybrid``, mutual-NN with SuperGlue's
+matches taken when NN starves -> 8-point fundamental RANSAC outlier
+rejection. Both stay on the device: no host sync inside either call.
 
 ``OracleExtractor`` is the test double: given a synthetic scene (world
 points + ground-truth camera poses) it produces exact projections with
 configurable noise and identity descriptors, so the whole VO runtime can
 be driven without trained weights.
 
-Not ported yet: the ``hybrid`` matcher, resolution buckets, sub-pixel
-peaks, patch descriptors and the right-camera map; a configuration that
-asks for one raises.
+Not ported yet: resolution buckets, sub-pixel peaks and patch
+descriptors; a configuration that asks for one raises.
 """
 
 from __future__ import annotations
@@ -97,11 +98,17 @@ class NeuralExtractor:
             self._matcher = "superglue" if sg_cfg.weights_path else "nn"
         if self._matcher == "hybrid" and not sg_cfg.weights_path:
             self._matcher = "nn"
-        if self._matcher not in ("superglue", "nn"):
+        if self._matcher not in ("superglue", "nn", "hybrid"):
             raise NotImplementedError(f"matcher {self._matcher!r} is not ported yet")
 
         self._rect = (
             torch.as_tensor(camera.undistort_map, device=dev) if camera.undistort_map is not None else None
+        )
+        # the right camera's own rectify map where the calibration has one
+        self._rect_right = (
+            torch.as_tensor(camera.undistort_map_right, device=dev)
+            if camera.undistort_map_right is not None
+            else self._rect
         )
         # keypoints normalise by the image the camera delivers (the engine
         # sets SuperGlueConfig.image_width/height to the camera's)
@@ -116,13 +123,15 @@ class NeuralExtractor:
         self._gen.manual_seed(self.cfg.runtime.seed + 1)
 
     @torch.no_grad()
-    def extract(self, image: np.ndarray, mask: Optional[np.ndarray] = None) -> FeatureBank:
+    def extract(self, image: np.ndarray, mask: Optional[np.ndarray] = None, right: bool = False) -> FeatureBank:
         """(H, W) uint8 image (numpy or tensor) -> :class:`FeatureBank` on
-        the device. ``mask`` nonzero keeps a pixel (replaces border removal)."""
+        the device. ``mask`` nonzero keeps a pixel (replaces border removal).
+        ``right`` rectifies with the right camera's map."""
         sp_cfg = self.cfg.superpoint
+        rect = self._rect_right if right else self._rect
         img = torch.as_tensor(image, device=self.device).to(torch.float32) / 255.0
-        if self._rect is not None:
-            img = remap_bilinear(img, self._rect)
+        if rect is not None:
+            img = remap_bilinear(img, rect)
         scores, desc = self.superpoint(img[None, :, :, None], nms_radius=sp_cfg.nms_radius)
         return select_keypoints(
             scores[0],
@@ -140,7 +149,10 @@ class NeuralExtractor:
         """Match two banks. ``floor`` (default
         ``superglue.nn_fallback_min_matches``; the init attempts pass
         ``nn_fallback_min_matches_init``) substitutes mutual-NN matches when
-        SuperGlue yields fewer."""
+        SuperGlue yields fewer. Under ``hybrid`` mutual-NN is primary and
+        SuperGlue's matches replace it when NN has fewer than ``floor or
+        40``, so a floor of 0 cannot turn the rescue off; both matchers run
+        on every call and the count picks one on the device."""
         sg_cfg = self.cfg.superglue
         if floor is None:
             floor = sg_cfg.nn_fallback_min_matches
@@ -148,14 +160,20 @@ class NeuralExtractor:
         def _nn() -> Matches:
             return match_nn(bank0, bank1, sg_cfg.nn_min_similarity, sg_cfg.nn_ratio, center=sg_cfg.nn_center)
 
-        if self._matcher == "nn":
-            m = _nn()
-        else:
+        def _sg() -> Matches:
             Z = self.superglue.match_scores(
                 bank0, bank1, self.width, self.height,
                 sinkhorn_iterations=sg_cfg.sinkhorn_iterations, num_heads=self.num_heads,
             )
-            m = decode_assignment(Z, bank0.valid, bank1.valid, self.match_threshold, margin=sg_cfg.match_margin)
+            return decode_assignment(Z, bank0.valid, bank1.valid, self.match_threshold, margin=sg_cfg.match_margin)
+
+        if self._matcher == "nn":
+            m = _nn()
+        elif self._matcher == "hybrid":
+            m_nn = _nn()
+            m = select_matches(m_nn.num_valid() < (floor or 40), _sg(), m_nn)
+        else:
+            m = _sg()
             if floor > 0:
                 m = select_matches(m.num_valid() < floor, _nn(), m)
         if outlier_rejection:
@@ -205,10 +223,14 @@ class OracleExtractor:
         # so reset runs reproduce a fresh oracle's noise/dropout stream
         self._rng_state0 = self.rng.bit_generator.state
 
-    def extract_with_pose(self, T_wc: np.ndarray) -> FeatureBank:
+    def extract_with_pose(self, T_wc: np.ndarray, right: bool = False) -> FeatureBank:
+        """``right``: the right camera, shifted along the left camera's
+        x-axis by the baseline b = bf / fx."""
         n = self.points.shape[0]
         R_wc = np.asarray(T_wc[:3, :3])
         t_wc = np.asarray(T_wc[:3, 3])
+        if right:
+            t_wc = t_wc + R_wc @ np.array([self.camera.bf / self.camera.fx, 0.0, 0.0])
         pc = (self.points - t_wc) @ R_wc  # R_cw = R_wc^T
         z = pc[:, 2]
         cam = self.camera

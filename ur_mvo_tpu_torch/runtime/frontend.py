@@ -1,8 +1,9 @@
 """VO tracking front end: the host state machine (port of
-``ur_mvo_tpu.runtime.frontend``, monocular slice).
+``ur_mvo_tpu.runtime.frontend``).
 
 Orchestration parity with the reference's ``Tracking``: monocular
-two-view initialization, frame-to-keyframe tracking with a PnP prior and
+two-view initialization, single-frame stereo and RGB-D initialization,
+frame-to-keyframe tracking with a PnP prior and
 pose-only refinement, the tracking-loss fallback that promotes the last
 frame to keyframe, relocalization into the existing map after repeated
 losses (with backoff), the keyframe policy, and keyframe insertion into the
@@ -13,9 +14,11 @@ the engine).
 A single-owner host loop queues device work (matching, PnP, pose
 refinement all stay on ``device``) and reads back ONE packed vector a
 frame; decisions (init success, fallback, keyframe) are taken on the host
-from it. Not ported, raising if asked for: stereo (``bank_right``), RGB-D
-(``depth_lookup``), local-map tracking, chunked processing, map adoption,
-precomputed matches.
+from it. Stereo frames (``bank_right``) match left to right and gate each
+pair by disparity and row inside the same step; RGB-D frames
+(``depth_lookup``) seed map points from depth at keyframe insertion. Not
+ported, raising if asked for: local-map tracking, chunked processing, map
+adoption, precomputed matches.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ur_mvo_tpu_torch.camera import Camera
-from ur_mvo_tpu_torch.config import Configs
+from ur_mvo_tpu_torch.config import Configs, SensorSetup
 from ur_mvo_tpu_torch.device import DeviceLike, resolve_device
 from ur_mvo_tpu_torch.ops.epipolar import two_view_init
 from ur_mvo_tpu_torch.ops.lie import mv
@@ -152,6 +155,7 @@ class Tracker:
         self.backend = backend or Backend(
             camera, cfg.backend, cfg.backend_optimization,
             keypoints_per_frame=cfg.superpoint.capacity, device=self.device, kernels=kernels,
+            bf16_point_side=cfg.sensor_setup == SensorSetup.RGBD,
         )
         self.K_mat = torch.as_tensor(np.asarray(camera.intrinsic_matrix(), np.float32), device=self.device)
         self._plain = not kernels
@@ -273,14 +277,35 @@ class Tracker:
             res.points3d.reshape(-1),
         ])
 
+    def _stereo_gate(self, bank, bank_right, m: Matches):
+        """Right x of each left feature whose left-right match passes the
+        calibration's disparity band, bf/depth_upper_thr < dx <
+        bf/depth_lower_thr, and row gate |dy| <= max_y_diff; -1 elsewhere.
+        On the device, without a host sync."""
+        cam = self.camera
+        ridx = torch.clamp(m.idx1, min=0).to(torch.int64)
+        rx = bank_right.kpts[ridx, 0]
+        ry = bank_right.kpts[ridx, 1]
+        dx = bank.kpts[:, 0] - rx
+        dy = torch.abs(bank.kpts[:, 1] - ry)
+        ok = m.valid & (dx > cam.bf / cam.depth_upper_thr) & (dx < cam.bf / cam.depth_lower_thr) & (dy <= cam.max_y_diff)
+        return torch.where(ok, rx, torch.full_like(rx, -1.0))
+
     @torch.no_grad()
-    def _fused_kernel(self, ref_bank, bank, snapshot: torch.Tensor) -> torch.Tensor:
+    def _fused_kernel(self, ref_bank, bank, snapshot: torch.Tensor, bank_right=None) -> torch.Tensor:
         """Fused frame step: match-vs-ref + correspondence scatter + PnP
         prior + pose refinement + jump-guard rescue, queued on the device
-        with ONE packed f32 result (see :func:`fused_track_core`)."""
+        with ONE packed f32 result (see :func:`fused_track_core`). With
+        ``bank_right`` the left-right match and its gate run in the same
+        step and fill the third column of ``uvr``."""
         cam, topt, rt, kf = self.camera, self.cfg.tracking_optimization, self.cfg.runtime, self.cfg.keyframe
         K = bank.kpts.shape[0]
-        uvr = torch.cat([bank.kpts, -torch.ones((K, 1), dtype=torch.float32, device=bank.kpts.device)], dim=1)
+        if bank_right is None:
+            uvr = torch.cat([bank.kpts, -torch.ones((K, 1), dtype=torch.float32, device=bank.kpts.device)], dim=1)
+        else:
+            with self.timer.span("match"):
+                m_lr = self.extractor.match(bank, bank_right, True)
+            uvr = torch.cat([bank.kpts, self._stereo_gate(bank, bank_right, m_lr)[:, None]], dim=1)
         with self.timer.span("match"):
             m = self.extractor.match(ref_bank, bank, True)
         return fused_track_core(
@@ -295,37 +320,40 @@ class Tracker:
 
     def process(self, bank, timestamp: float, depth_lookup=None, bank_right=None,
                 precomputed_match=None, precomputed_track=None) -> Optional[np.ndarray]:
-        """One frame. ``bank``: FeatureBank (already extracted). Returns the
-        4x4 keyframe pose when a keyframe was inserted, else None."""
-        if bank_right is not None:
-            raise NotImplementedError("Tracker.process(bank_right=...): stereo is not ported yet")
-        if depth_lookup is not None:
-            raise NotImplementedError("Tracker.process(depth_lookup=...): RGB-D is not ported yet")
+        """One frame. ``bank``: FeatureBank (already extracted);
+        ``bank_right``: the right image's FeatureBank (stereo);
+        ``depth_lookup``: keypoints (K, 2) -> metric depth (K,), <= 0 where
+        unknown (RGB-D). Returns the 4x4 keyframe pose when a keyframe was
+        inserted, else None."""
         if precomputed_match is not None or precomputed_track is not None:
             raise NotImplementedError("Tracker.process: precomputed matches / tracks are not ported yet")
         frame_id = self._frame_counter
         self._frame_counter += 1
 
         if not self._initialized:
-            return self._try_initialize(bank, timestamp, frame_id)
+            if bank_right is not None:
+                return self._init_stereo(bank, self._stereo_uvr(bank, bank_right), timestamp, frame_id)
+            return self._try_initialize(bank, timestamp, frame_id, depth_lookup)
 
         min_match = self.cfg.keyframe.min_num_match
         uvr = None  # the fused step RETURNS uvr in its packed output
 
-        if self._fused:
-            num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank)
+        # without a baseline there is no disparity gate: stereo then takes
+        # the two-program flow, as in the JAX package
+        if self._fused and (bank_right is None or self.camera.bf > 0):
+            num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank, bank_right)
             if num_match < min_match:
                 promoted = self._promote_last_frame(timestamp)
                 if promoted is None:
-                    return self._handle_lost(bank, timestamp, frame_id, uvr=uvr)
-                num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank)
+                    return self._handle_lost(bank, timestamp, frame_id, depth_lookup, uvr=uvr)
+                num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank, bank_right)
             elif num_inliers < min_match:
                 promoted = self._promote_last_frame(timestamp)
                 if promoted is not None:
-                    num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank)
+                    num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank, bank_right)
             ref_frame_id = self._ref_frame_id
         else:
-            uvr = self._mono_uvr(bank)
+            uvr = self._stereo_uvr(bank, bank_right)
             with self.timer.span("match"):
                 matches = self.extractor.match(self._ref_bank, bank)
                 num_match = int(matches.num_valid())
@@ -336,7 +364,7 @@ class Tracker:
             if num_match < min_match:
                 promoted = self._promote_last_frame(timestamp)
                 if promoted is None:
-                    return self._handle_lost(bank, timestamp, frame_id, uvr=uvr)
+                    return self._handle_lost(bank, timestamp, frame_id, depth_lookup, uvr=uvr)
                 ref_track = self.backend.store.kf_track[self._ref_slot]
                 ref_frame_id = self._ref_frame_id
                 matches = self.extractor.match(self._ref_bank, bank)
@@ -352,11 +380,13 @@ class Tracker:
                         num_inliers, pose, frame_track = self._track_frame(bank, uvr, ref_track, matches)
 
         if num_inliers < min_match:
-            return self._handle_lost(bank, timestamp, frame_id, uvr=uvr)
+            return self._handle_lost(bank, timestamp, frame_id, depth_lookup, uvr=uvr)
 
-        return self._finish_tracked_frame(bank, uvr, pose, frame_track, num_inliers, timestamp, frame_id, ref_frame_id)
+        return self._finish_tracked_frame(bank, uvr, pose, frame_track, num_inliers, timestamp, frame_id, ref_frame_id,
+                                          depth_lookup)
 
-    def _finish_tracked_frame(self, bank, uvr, pose, frame_track, num_inliers, timestamp, frame_id, ref_frame_id):
+    def _finish_tracked_frame(self, bank, uvr, pose, frame_track, num_inliers, timestamp, frame_id, ref_frame_id,
+                              depth_lookup=None):
         """Shared tail of a successfully tracked frame: keyframe decision
         + insertion, publishing, last-frame bookkeeping."""
         pose_out = None
@@ -365,7 +395,8 @@ class Tracker:
         if self._add_keyframe_decision(pose, num_inliers, frame_id) and (
             ref_frame_id == self._last_keyframe_frame_id
         ):
-            pose_out = self._insert_keyframe(bank, uvr, pose, frame_track, timestamp, frame_id)
+            pose_out = self._insert_keyframe(bank, uvr, pose, frame_track, timestamp, frame_id,
+                                             depth_lookup=depth_lookup)
 
         # BA may have refined the pose of a just-inserted keyframe; carry
         # the optimized one forward
@@ -401,11 +432,81 @@ class Tracker:
         kpts = bank.kpts.cpu().numpy()
         return np.concatenate([kpts, -np.ones((bank.capacity, 1), np.float32)], axis=1)
 
+    def _stereo_uvr(self, bank, bank_right) -> np.ndarray:
+        """(K, 3) per-left-feature [u, v, u_right] on the host; u_right = -1
+        where no left-right match passes the disparity and row gates
+        (:meth:`_stereo_gate`). Without ``bank_right``, :meth:`_mono_uvr`."""
+        if bank_right is None:
+            return self._mono_uvr(bank)
+        m = self.extractor.match(bank, bank_right)
+        return torch.cat([bank.kpts, self._stereo_gate(bank, bank_right, m)[:, None]], dim=1).cpu().numpy()
+
     # ------------------------------------------------------------------
     # Initialization
     # ------------------------------------------------------------------
 
-    def _try_initialize(self, bank, timestamp, frame_id) -> Optional[np.ndarray]:
+    def _init_stereo(self, bank, uvr, timestamp, frame_id) -> Optional[np.ndarray]:
+        """Single-frame stereo initialization: needs >= 150 features and
+        >= 100 gated stereo points; the keyframe insertion seeds every
+        stereo point as a map point from its disparity."""
+        valid = bank.valid.cpu().numpy()
+        if valid.sum() < 150:
+            return None
+        if (valid & (uvr[:, 2] > 0)).sum() < 100:
+            return None
+        pose = np.eye(4, dtype=np.float32)
+        self._insert_keyframe(bank, uvr, pose, np.full(bank.capacity, -1, np.int32), timestamp, frame_id)
+        self._initialized = True
+        st = self.backend.store
+        frame_track = st.kf_track[st.frame_id_to_slot[frame_id]].copy()
+        self._after_track(bank, pose, timestamp, frame_id, track_well=True, track=frame_track, uvr=uvr)
+        self._num_since_last_keyframe = 0
+        return pose
+
+    def _init_rgbd(self, bank, timestamp, frame_id, depth_lookup) -> Optional[np.ndarray]:
+        """Single-frame RGB-D initialization: needs >= 250 features and
+        >= 100 of them with a depth inside the camera's band; those become
+        map points at their back-projected depth."""
+        if int(bank.num_valid()) < 250:
+            return None
+        kpts, valid, desc, scores = self._materialize_bank(bank)
+        d = depth_lookup(kpts)  # (K,) metric depth, <= 0 unknown
+        good = valid & (d > self.camera.depth_lower_thr) & (d < self.camera.depth_upper_thr)
+        if good.sum() < 100:
+            return None
+        K = bank.capacity
+        cam = self.camera
+        st = self.backend.store
+        uvr = np.concatenate([kpts, -np.ones((K, 1), np.float32)], axis=1)
+        slot = st.alloc_keyframe(frame_id, timestamp, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), uvr, valid,
+                                 desc=desc, scores=scores)
+        rays = np.stack([(kpts[:, 0] - cam.cx) / cam.fx, (kpts[:, 1] - cam.cy) / cam.fy, np.ones(K, np.float32)], axis=1)
+        Xw = rays * d[:, None]
+        mp_ids = st.alloc_mappoints(int(good.sum()))
+        st.mp_pos[mp_ids] = Xw[good]
+        st.mp_good[mp_ids] = True
+        st.add_observations(slot, mp_ids, np.nonzero(good)[0])
+        st.snapshot_keyframe_geometry(slot)
+        # representative descriptors for the init-born map points
+        st.update_descriptors(mp_ids)
+
+        frame_track = np.full(K, -1, np.int32)
+        frame_track[np.nonzero(good)[0]] = mp_ids
+        pose = np.eye(4, dtype=np.float32)
+        self._initialized = True
+        self._ref_slot = slot
+        self._ref_bank = bank
+        self._ref_frame_id = frame_id
+        self._last_keyframe_pose = pose
+        self._last_keyframe_frame_id = frame_id
+        self._last_keyframe_time = timestamp
+        self._after_track(bank, pose, timestamp, frame_id, track_well=True, track=frame_track)
+        self._num_since_last_keyframe = 0
+        return pose
+
+    def _try_initialize(self, bank, timestamp, frame_id, depth_lookup=None) -> Optional[np.ndarray]:
+        if depth_lookup is not None:
+            return self._init_rgbd(bank, timestamp, frame_id, depth_lookup)
         n_feat = int(bank.num_valid())
         init_cfg = self.cfg.initializer
 
@@ -642,12 +743,12 @@ class Tracker:
             frame_track = np.full(K, -1, np.int32)
         return num_match, n_inl, pose, frame_track, uvr
 
-    def _track_frame_fused(self, bank):
+    def _track_frame_fused(self, bank, bank_right=None):
         """Host half of the fused frame step: ONE packed upload, ONE packed
         readback (see fused_snapshot/parse_fused_packed)."""
         snap = self._upload(self.fused_snapshot())
         with self.timer.span("track"):
-            arr = self._fused_kernel(self._ref_bank, bank, snap).cpu().numpy()
+            arr = self._fused_kernel(self._ref_bank, bank, snap, bank_right).cpu().numpy()
         return self.parse_fused_packed(arr)
 
     def _promote_last_frame(self, timestamp):
@@ -691,10 +792,12 @@ class Tracker:
         scores = arr[3 * K + K * D :]
         return kpts, valid, desc, scores
 
-    def _insert_keyframe(self, bank, uvr, pose, frame_track, timestamp, frame_id, set_ref=True, materialized=None):
+    def _insert_keyframe(self, bank, uvr, pose, frame_track, timestamp, frame_id, set_ref=True, materialized=None,
+                         depth_lookup=None):
         """Insert a keyframe, then look for a loop from it.
         ``materialized``: the bank's ``(kpts, valid, desc, scores)`` when
-        the caller already read it back (relocalization)."""
+        the caller already read it back (relocalization); ``depth_lookup``
+        seeds its new map points from depth (RGB-D)."""
         st = self.backend.store
         if frame_id in st.frame_id_to_slot:
             return None
@@ -702,10 +805,11 @@ class Tracker:
         kpts, valid, desc_h, scores_h = materialized if materialized is not None else self._materialize_bank(bank)
         if uvr is None:
             uvr = np.concatenate([kpts, -np.ones((K, 1), np.float32)], axis=1)
+        depth = depth_lookup(kpts) if depth_lookup is not None else None
         track = frame_track if frame_track is not None else np.full(K, -1, np.int32)
         with self.timer.span("keyframe_ba"):
             slot, (R_opt, t_opt) = self.backend.insert_keyframe(
-                frame_id, timestamp, pose[:3, :3], pose[:3, 3], uvr, valid, track, None,
+                frame_id, timestamp, pose[:3, :3], pose[:3, 3], uvr, valid, track, depth,
                 desc=desc_h, scores=scores_h,
             )
         if self.cfg.backend.loop_closure:
@@ -740,7 +844,7 @@ class Tracker:
             self._lost_count = 0
             self._reloc_next_attempt = 0
 
-    def _handle_lost(self, bank, timestamp, frame_id, uvr=None):
+    def _handle_lost(self, bank, timestamp, frame_id, depth_lookup=None, uvr=None):
         """Shared tail of a frame that could not be tracked: after
         ``reloc_after_failures`` consecutive losses, try to re-anchor into
         the existing map (``backend.relocalization``). A FAILED attempt
@@ -752,7 +856,7 @@ class Tracker:
         if (bcfg.relocalization and self._initialized
                 and self._lost_count >= bcfg.reloc_after_failures
                 and self._lost_count >= self._reloc_next_attempt):
-            out = self._relocalize(bank, timestamp, frame_id, uvr=uvr)
+            out = self._relocalize(bank, timestamp, frame_id, depth_lookup, uvr=uvr)
             if out is not None:
                 self._lost_count = 0
                 self._reloc_next_attempt = 0
@@ -762,7 +866,7 @@ class Tracker:
         self._after_track(bank, None, timestamp, frame_id, track_well=False, uvr=uvr)
         return None
 
-    def _relocalize(self, bank, timestamp, frame_id, uvr=None):
+    def _relocalize(self, bank, timestamp, frame_id, depth_lookup=None, uvr=None):
         """Recover from tracking loss by re-anchoring into the existing map
         (``Backend.relocalize``): the current frame enters as a keyframe
         observing the verified mappoints and becomes the new reference, so
@@ -776,7 +880,7 @@ class Tracker:
         self._relocalizations += 1
         pose, frame_track, _ = res
         pose_out = self._insert_keyframe(bank, uvr, pose, frame_track, timestamp, frame_id, set_ref=True,
-                                         materialized=mat)
+                                         materialized=mat, depth_lookup=depth_lookup)
         final = pose_out if pose_out is not None else pose
         self._publish_tracked(final, timestamp, pose_out is not None)
         self._after_track(bank, final, timestamp, frame_id, track_well=True, track=frame_track, uvr=uvr)
