@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (``ur_mvo_tpu_torch``) on one card: its
 kernels, its front end, the whole monocular engine and its long,
-loop-bearing protocol with global optimization, and the stereo and RGB-D
-engines with the hybrid matcher.
+loop-bearing protocol with global optimization, the stereo and RGB-D
+engines with the hybrid matcher, and the tracking and map extras
+(local-map tracking, resolution buckets, sub-pixel peaks, patch
+descriptors, map snapshots).
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -139,11 +141,52 @@ layers, bf16 compute. Phases, each printing one JSON line:
    point within 5e-2, a limit that the plain assembly on shuffled
    observations must meet and a wrong slot assembly must miss; host ms.
 
+13. extras: the features a user turns on through ``Configs`` and the
+   engine's map API, at the production operating point, under deterministic
+   algorithms, launch counts reset before each path:
+   ``mono/3d+local_map`` (``local_map_tracking.enabled`` over the ``mono/3d``
+   scenes: initialised, >= 3 keyframes, finite poses, <= 6 frames lost;
+   per seed the ATE, the local-map steps, the steps whose
+   pose was kept, associations added and the ``pose_gn`` launches of the
+   local-map steps apart from the track step's, which must be > 0; every
+   captured local-map problem, N = 1024 and one round, through the kernel
+   against the plain optimizer's full schedule at phase 3's limits or, where
+   a few-inlier round stops at a fixed point that the sums' rounding picks,
+   those of the plain version run on its rows in another order (up to 64
+   orders drawn), where a near miss (the kernel's t moved 1.5 limits) must
+   fail the same search, with a 4-round control that must miss, and the
+   times); ``buckets`` (frame 0 of seed 11 through a (288, 384) bucket
+   against the native extraction: > 99% of the interior keypoints within
+   0.5 px, all inside the trimmed image; a 216x288 crop through it; the
+   bucketed bank against the plain versions, phase 5's overlap; the stage
+   kernels launched at 288x384; a 16-frame engine pass through a (240, 320)
+   bucket with every third frame cropped, keyframe ATE < 0.6);
+   ``subpixel`` (on one set of score maps, the card against the CPU: the
+   same integer picks, refined keypoints within 1e-3 px; end to end, the
+   kernels against the plain versions in float32 and bf16 at phase 5's
+   overlap, in float32 also >= 0.9 of the common picks' refined keypoints
+   within 1e-3 px, and the plain versions on the card against the CPU's,
+   reported); ``patch`` (``superpoint_scratch_v2``, patch
+   descriptors, matcher ``nn``, float32, a rendered plane through
+   ``UR_MVO.process``: >= 4 keyframes, keyframe ATE < 0.45); ``snapshot``
+   (session A over frames 0-15 of seed 11, ``save_map_snapshot``, every
+   field back bit for bit from ``MapStore.load_snapshot``; session B a fresh
+   engine, ``load_map_snapshot``, frames 16-23: initialised with no init
+   attempt, a keyframe added, <= 6 frames lost, the keyframe ATE over both
+   sessions beside the JAX package's, relocalizations; ``save_map_ply`` one
+   vertex per good map point). The JAX package misses mono/3d's ATE gate on
+   both protocols (``LOCAL_MAP_JAX``, ``SNAPSHOT_JAX``: fewer than 5 poses
+   emitted with local-map tracking, keyframe ATE 0.348 over the two
+   sessions), so those two are held to their health and print their ATE
+   beside the JAX package's.
+
 Then each phase's seconds, the ``kernels`` line (launches from the engine
 run; the sorted reduction's from the long map's ``global_optimize``, the
 unsorted one's from the ``"pallas"`` global BA; times at the global
 shape; ``launches_by_path``: each path's own counts, ``mono/long`` with the
-long map's ``global_optimize``), the ``nvidia-smi`` name/power-limit line,
+long map's ``global_optimize``, and phase 13's paths, ``local_map_step``
+the local-map steps' own ``pose_gn`` launches), the ``nvidia-smi``
+name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
 ``{"phase": ..., "failed": ...}`` line and the run goes on to the next
 phase; at the end any failure makes the exit code 1 and leaves the
@@ -170,6 +213,7 @@ call at B = 2, N = 1024 (all three run in an older checkout too: copy this
 file into one and run it there to take that kernel's digest).
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
+``--only-extras`` builds and runs phase 13 alone.
 ``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
 runs one metric protocol on those scenes through phase 10's code, printing
 each run's ATE (the spread behind its 3-seed gate) and the gate over all of
@@ -298,6 +342,27 @@ POSE_GN_DIGEST = "e835064b9dd544703f0cea51ee47f4bd501544b4dcc1a4248a1992d414eda6
 # that kernel's device and wall ms a call at B = 2, N = 1024 (PERF.md,
 # section 6, row 5): printed beside this kernel's
 POSE_GN_BEFORE = (0.1841, 0.283)
+# phase 13: the extraction bucket held against the native 240x320 extraction
+# (tests/test_resolution_buckets.py's), and the engine pass through a
+# (240, 320) bucket with every third frame cropped (16 frames, keyframe ATE
+# under 0.6, as that test); the from-scratch patch-descriptor pipeline of
+# tests/test_patch_desc.py (24 frames, >= 4 keyframes, keyframe ATE under
+# 0.45); the snapshot protocol's split of the 24-frame scene and its gate
+EXTRAS_BUCKET = (288, 384)
+BUCKET_FRAMES, BUCKET_MAX_ATE = 16, 0.6
+PATCH_WEIGHTS = os.path.join(REPO, "weights", "superpoint_scratch_v2.npz")
+PATCH_FRAMES, PATCH_MIN_KEYFRAMES, PATCH_MAX_ATE = 24, 4, 0.45
+SNAPSHOT_SPLIT = 16
+# the JAX package on phase 13's local-map and snapshot protocols, on the CPU
+# (scripts/metric_gauge.py --reference mono/3d+local_map 11,12,13 and
+# --reference snapshot 11): printed beside the port's runs
+LOCAL_MAP_JAX = {
+    11: {"ate": None, "poses_emitted": 1, "keyframe_ate": 0.1640, "keyframes": 7, "frames_lost": 0},
+    12: {"ate": None, "poses_emitted": 1, "keyframe_ate": 0.1533, "keyframes": 7, "frames_lost": 0},
+    13: {"ate": None, "poses_emitted": 1, "keyframe_ate": 0.1063, "keyframes": 5, "frames_lost": 0},
+}
+SNAPSHOT_JAX = {"seed": 11, "keyframes_a": 5, "keyframes_after_b": 8, "keyframe_ate_both_sessions": 0.3480,
+                "frames_lost_b": 0, "relocalizations_b": 0}
 
 
 
@@ -2507,6 +2572,609 @@ def engine_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the extras (local-map tracking, resolution buckets, sub-pixel
+# peaks, patch descriptors, map snapshots)
+# ---------------------------------------------------------------------------
+
+def extras_config(edit=None):
+    """``production_config`` (240x320, the checkpoint's operating point,
+    relocalization on) with ``edit`` applied."""
+    from ur_mvo_tpu_torch.config import Configs
+    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
+
+    cfg = production_config(Configs, checkpoint_operating_point)
+    if edit is not None:
+        edit(cfg)
+    return cfg
+
+
+def extras_engine(edit=None, kernels=True):
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.engine import UR_MVO
+
+    return UR_MVO(extras_config(edit), camera=make_pinhole(W, H, FX, FX, W / 2, H / 2), device="cuda", kernels=kernels)
+
+
+class LocalMapProbe:
+    """What the local-map steps of a run did, read around the tracker's
+    ``_track_local_map``: steps whose pose was kept (inliers grew),
+    associations added to the frame's track, and the ``pose_gn`` launches
+    inside the steps (the launch counts' difference across each step, apart
+    from the track step's). It also keeps every step's pose-GN problem (the
+    tracker's ``_optimize`` wrapped for the step's length). The tracker's
+    ``local_map`` span counts the steps."""
+
+    def __init__(self, vo):
+        from ur_mvo_tpu_torch.ops import cuda_ext
+
+        self.launches, self.problems = cuda_ext.LAUNCHES, []
+        self.kept = self.added = self.pose_gn = 0
+        tracker = vo.tracker
+        step, optimize = tracker._track_local_map, tracker._optimize
+        cam, topt = tracker.camera, tracker.cfg.tracking_optimization
+        geom = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+
+        def captured(R0, t0, obs, rounds=4):
+            kw = {"rounds": rounds, "chi2_mono": topt.mono_point, "chi2_stereo": topt.stereo_point}
+            self.problems.append((R0.clone(), t0.clone(), type(obs)(*(f.clone() for f in obs)), geom, kw))
+            return optimize(R0, t0, obs, rounds=rounds)
+
+        def probed(bank, pose, frame_track, num_inliers):
+            before = self.launches.get("pose_gn", 0)
+            tracker._optimize = captured
+            try:
+                new_pose, new_track, n = step(bank, pose, frame_track, num_inliers)
+            finally:
+                del tracker._optimize
+            self.pose_gn += self.launches.get("pose_gn", 0) - before
+            self.kept += int(n > num_inliers)
+            self.added += int((new_track >= 0).sum() - (frame_track >= 0).sum())
+            return new_pose, new_track, n
+
+        tracker._track_local_map = probed
+
+    def read(self):
+        """(steps kept, associations added, pose_gn launches) since the last
+        read."""
+        out = (self.kept, self.added, self.pose_gn)
+        self.kept = self.added = self.pose_gn = 0
+        return out
+
+
+# the row orders the local-map check draws at most, one plain call each at
+# the path's own batch of one (a batched call splits its sums otherwise)
+LOCAL_MAP_TWINS = 64
+
+
+def local_map_kernel_check(problems, smi):
+    """Every captured local-map problem (B = 1, N = capacity, one round)
+    through the pose-GN kernel against the plain optimizer's full schedule
+    on the card, at the pose phase's limits (R 2e-5, t 2e-4, inlier flags
+    equal on >= 99%). On a few-inlier problem one round stops at a fixed
+    point in a flat valley, and which one depends on the rounding of the
+    cost sums: the plain version run on the rows in another order (a twin:
+    the same function, another rounding) stops at another. So where the
+    kernel is outside those limits of the plain version, the plain version
+    is run on other orders (up to ``LOCAL_MAP_TWINS``) until one lands
+    within those limits of the kernel: the kernel's endpoint must be one the
+    plain version itself reaches. For those problems the orders drawn, the
+    twins' spread and how far the plain version still moves in 30 more steps
+    are printed. On each of them a near miss, the kernel's pose with t moved
+    1.5 limits, goes through the same search over the same twins and must
+    not meet it. The plain version's full 4-round schedule on the same
+    problem (the control, another function) must miss the plain version and
+    the twins drawn on most problems. The times are those of the problem
+    with the most valid rows."""
+    import torch
+
+    from ur_mvo_tpu_torch.ops.pose_opt import optimize_pose, optimize_pose_plain
+
+    TOL_R, TOL_T = 2e-5, 2e-4
+    rows, widest = [], None
+
+    def distance(a, b):
+        """Largest of the R and t differences, each over its limit, and the
+        inlier agreement."""
+        d = max((a[0] - b[0]).abs().max().item() / TOL_R, (a[1] - b[1]).abs().max().item() / TOL_T)
+        return d, (a[2] == b[2]).float().mean().item()
+
+    for R0, t0, obs, geom, kw in problems:
+        rounds, chi2 = kw["rounds"], (kw["chi2_mono"], kw["chi2_stereo"])
+        N = obs.X.shape[0]
+
+        def plain(rounds=rounds, iters=10):
+            R, t, inl, _ = optimize_pose_plain(R0[None], t0[None], obs.X[None], obs.uv[None], obs.valid[None], *geom,
+                                               *chi2, rounds=rounds, iters_per_round=iters, full_schedule=True)
+            return R[0], t[0], inl[0]
+
+        def twin(perm):
+            """The plain version on the rows in another order; inlier flags
+            back in the rows' own order."""
+            R, t, inl, _ = optimize_pose_plain(R0[None], t0[None], obs.X[perm][None], obs.uv[perm][None],
+                                               obs.valid[perm][None], *geom, *chi2, rounds=rounds, full_schedule=True)
+            return R[0], t[0], torch.empty_like(inl[0]).index_copy_(0, perm, inl[0])
+
+        out = optimize_pose(R0, t0, obs, *geom, chi2_mono=chi2[0], chi2_stereo=chi2[1], rounds=rounds)
+        kernel, ref = (out.R_cw, out.t_cw, out.inliers), plain()
+        to_plain, agree = distance(kernel, ref)
+        control = plain(rounds=4)
+        r = {"valid_rows": int(obs.valid.sum()), "n_inliers": int(out.n_inliers), "rounds": rounds, "N": int(N),
+             "to_plain": to_plain, "inlier_agreement": agree, "to_nearest": to_plain, "nearest_inlier_agreement": agree,
+             "control_to_plain": distance(control, ref)[0]}
+        if not (to_plain <= 1.0 and agree >= 0.99):
+            g, drawn = torch.Generator().manual_seed(0), []
+
+            def nearest(pose):
+                """The twins drawn in one fixed sequence (shared by every
+                pose searched) until one lands within the limits of
+                ``pose``: (distance, inlier agreement, orders drawn)."""
+                best = (float("inf"), 0.0)
+                for k in range(1, LOCAL_MAP_TWINS + 1):
+                    if len(drawn) < k:
+                        drawn.append(twin(torch.randperm(N, generator=g).to(obs.X.device)))
+                    best = min(best, distance(pose, drawn[k - 1]), key=lambda da: da[0])
+                    if best[0] <= 1.0 and best[1] >= 0.99:
+                        break
+                return (*best, k)
+
+            r["to_nearest"], r["nearest_inlier_agreement"], r["orders_drawn"] = nearest(kernel)
+            # the near-miss control: the kernel's pose with t moved 1.5 limits
+            # further from the plain version's, every component (a move toward
+            # it could land on the plain version's own endpoint, a right
+            # answer); the same search must reject it
+            step = ((kernel[1] >= ref[1]).float() * 3.0 - 1.5) * TOL_T
+            near_miss = nearest((kernel[0], kernel[1] + step, kernel[2]))
+            r["near_miss_to_nearest"], r["near_miss_orders_drawn"] = near_miss[0], near_miss[2]
+            r["near_miss_met"] = near_miss[0] <= 1.0 and near_miss[1] >= 0.99
+            r["twin_spread"] = max(distance(tw, ref)[0] for tw in drawn)
+            r["control_to_nearest"] = min(distance(control, tw)[0] for tw in [ref] + drawn)
+            r["plain_moves_in_30_more_steps"] = distance(ref, plain(iters=40))[0]
+        rows.append(r)
+        if widest is None or r["valid_rows"] > widest[0]["valid_rows"]:
+            widest = (r, (R0, t0, obs, geom, chi2, rounds))
+    r, (R0, t0, obs, geom, chi2, rounds) = widest
+    call = lambda: optimize_pose(R0, t0, obs, *geom, chi2_mono=chi2[0], chi2_stereo=chi2[1], rounds=rounds)  # noqa: E731
+    timing = {"valid_rows": r["valid_rows"], "ms": device_ms(call, ("pose_gn_kernel",))[0], "wall_ms": time_ms(call),
+              "plain_ms": device_ms(lambda: optimize_pose(R0, t0, obs, *geom, chi2_mono=chi2[0], chi2_stereo=chi2[1],
+                                                          rounds=rounds, plain=True), calls=3)[0]}
+    ok = [x["to_nearest"] <= 1.0 and x["nearest_inlier_agreement"] >= 0.99 for x in rows]
+    twinned = [x for x in rows if "twin_spread" in x]
+    control_misses = sum(x.get("control_to_nearest", x["control_to_plain"]) > 1.0 for x in rows)
+    summary = {"phase": "extras", "check": "local_map_pose_gn", "problems": len(rows), "tol_R": TOL_R, "tol_t": TOL_T,
+               "within_limits_of_plain": len(rows) - len(twinned),
+               "within_limits_of_plain_or_a_twin": sum(ok),
+               "orders_drawn": [x["orders_drawn"] for x in twinned],
+               "largest_to_plain": max(x["to_plain"] for x in rows), "largest_to_nearest": max(x["to_nearest"] for x in rows),
+               "largest_twin_spread": max((x["twin_spread"] for x in twinned), default=None),
+               "largest_plain_move_in_30_more_steps": max((x["plain_moves_in_30_more_steps"] for x in twinned), default=None),
+               "control_misses": control_misses, "smallest_control_distance": min(x["control_to_plain"] for x in rows),
+               "near_miss_to_nearest": [x["near_miss_to_nearest"] for x in twinned],
+               "near_misses_met": sum(x["near_miss_met"] for x in twinned),
+               "timing_B1_N1024_one_round": timing, "card": smi}
+    emit(summary)
+    emit({"phase": "extras", "check": "local_map_pose_gn_problems", "outside_limits_of_plain": twinned})
+    if any(x["rounds"] != 1 or x["N"] != 1024 for x in rows):
+        raise AssertionError("extras: a local-map problem ran other than one round at N = 1024")
+    if not all(ok):
+        raise AssertionError(f"extras: {len(rows) - sum(ok)} of {len(rows)} local-map problems outside the pose "
+                             f"phase's limits of the plain version and of every order of its rows drawn")
+    if any(x["near_miss_met"] for x in twinned):
+        raise AssertionError(f"extras: a pose 1.5 t-limits from the kernel's met the twin search on "
+                             f"{sum(x['near_miss_met'] for x in twinned)} of {len(twinned)} problems: the search "
+                             f"does not reject a near miss")
+    if not control_misses > len(rows) / 2:
+        raise AssertionError(f"extras: the 4-round control met the criterion on {len(rows) - control_misses} "
+                             f"of {len(rows)} problems: it does not tell one function from another")
+    return summary
+
+
+def extras_local_map(smi, launches):
+    """``mono/3d`` with ``local_map_tracking.enabled``: the production mono
+    engine over the protocol's scenes, each run's health, its local-map steps
+    launching pose GN, and one captured step checked on the kernel."""
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    vo = extras_engine(lambda c: setattr(c.local_map_tracking, "enabled", True))
+    probe = LocalMapProbe(vo)
+    cuda_ext.LAUNCHES.clear()
+    rows, counted = [], 0
+    for seed in ENGINE_SEEDS:
+        row, per_frame, _ = engine_run(vo, seed)
+        kept, added, gn = probe.read()
+        steps = vo.tracker.timer.summary().get("local_map", {}).get("count", 0) - counted
+        counted += steps
+        row.update({"local_map_steps": steps, "local_map_steps_kept": kept,
+                    "mean_associations_added": added / max(steps, 1), "local_map_pose_gn_launches": gn,
+                    "host_ms_a_frame_median": statistics.median(per_frame)})
+        rows.append(row)
+    launches["mono/3d+local_map"] = dict(cuda_ext.LAUNCHES)
+    gn_local = sum(r["local_map_pose_gn_launches"] for r in rows)
+    launches["local_map_step"] = {"pose_gn": gn_local}
+    stage = vo.tracker.timer.summary().get("local_map", {})
+    emit({"phase": "extras", "check": "mono/3d+local_map", "runs": rows, "jax_cpu": LOCAL_MAP_JAX,
+          "launches": launches["mono/3d+local_map"],
+          "local_map_pose_gn_launches": gn_local,
+          "track_pose_gn_launches": launches["mono/3d+local_map"].get("pose_gn", 0) - gn_local,
+          "local_map_host_ms": {"count": stage.get("count"), "mean_ms": stage.get("mean_ms"), "max_ms": stage.get("max_ms")},
+          "card": smi})
+    vo.shutdown()
+    # the JAX package misses mono/3d's gate with local-map tracking on these
+    # scenes (fewer than 5 poses emitted, LOCAL_MAP_JAX): the run is held to
+    # its health, its ATE printed beside the JAX package's (ROADMAP C9)
+    for r in rows:
+        where = f"extras (mono/3d+local_map, seed {r['seed']})"
+        if r["initialised_at_frame"] is None or r["keyframes"] < MIN_KEYFRAMES or not r["poses_finite"]:
+            raise AssertionError(f"{where}: initialised at {r['initialised_at_frame']}, {r['keyframes']} keyframes, "
+                                 f"finite poses {r['poses_finite']}")
+        if r["frames_lost"] > MAX_FRAMES_LOST:
+            raise AssertionError(f"{where}: {r['frames_lost']} frames lost (<= {MAX_FRAMES_LOST})")
+    missing = [k for k in ENGINE_KERNELS if launches["mono/3d+local_map"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"extras (mono/3d+local_map): kernels of the path never launched: {missing}")
+    if gn_local <= 0:
+        raise AssertionError("extras (mono/3d+local_map): the local-map steps launched pose GN no time")
+    return local_map_kernel_check(probe.problems, smi)
+
+
+def extras_buckets(smi, launches):
+    """Resolution buckets: frame 0 of the seed-11 scene through a (288, 384)
+    bucket against the native extraction (the interior keypoints within
+    0.5 px, ``tests/test_resolution_buckets.py``), a 216x288 crop through
+    it, the bucketed bank against the plain versions on the card (phase 5's
+    overlap), the stage kernels launched at the bucket's shape; then an
+    engine pass with a (240, 320) bucket and every third frame cropped."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.components import Frame, Image
+    from ur_mvo_tpu_torch.models import superpoint as sp_module
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.runtime.extractor import NeuralExtractor
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    cam = make_pinhole(W, H, FX, FX, W / 2, H / 2)
+    img = engine_scene(ENGINE_SEEDS[0])[0][0].image.get_image()
+
+    def bucketed(c):
+        c.superpoint.resolution_buckets = [EXTRAS_BUCKET]
+
+    native = NeuralExtractor(extras_config(), cam, device="cuda")
+    ext = NeuralExtractor(extras_config(bucketed), cam, device="cuda")
+    plain = NeuralExtractor(extras_config(bucketed), cam, device="cuda", kernels=False)
+    shapes, stage_conv = [], sp_module.stage_conv
+
+    def recorded(x, *args, **kw):
+        shapes.append(list(x.shape))
+        return stage_conv(x, *args, **kw)
+
+    cuda_ext.LAUNCHES.clear()
+    sp_module.stage_conv = recorded
+    try:
+        b1 = ext.extract(img)
+        torch.cuda.synchronize()
+    finally:
+        sp_module.stage_conv = stage_conv
+    stage_launches = {k: v for k, v in cuda_ext.LAUNCHES.items() if k.startswith("stage")}
+    b0 = native.extract(img)
+    crop = ext.extract(img[:216, :288])
+    bp = plain.extract(img)
+    k0 = b0.kpts.cpu().numpy()[b0.valid.cpu().numpy()]
+    k1 = b1.kpts.cpu().numpy()[b1.valid.cpu().numpy()]
+    kc = crop.kpts.cpu().numpy()[crop.valid.cpu().numpy()]
+    interior = (k0[:, 0] < W - 48) & (k0[:, 1] < H - 48)
+    near = (np.abs(k0[interior][:, None, :] - k1[None, :, :]).sum(-1).min(1) < 0.5).mean()
+    a, c = kpt_set(b1), kpt_set(bp)
+    overlap = len(a & c) / max(len(a), len(c), 1)
+    border = extras_config().superpoint.remove_borders
+
+    # the engine through a (240, 320) bucket, every third frame a bottom-right crop
+    images, T_wc, _ = render_sequence(BUCKET_FRAMES, H, W, FX, seed=4, n_planes=3)
+    def engine_edit(c):
+        c.superpoint.resolution_buckets = [(H, W)]
+        # the init thresholds of tests/test_resolution_buckets.py's engine pass
+        c.initializer.min_matches = 40
+        c.initializer.min_features_first = 80
+
+    vo = extras_engine(engine_edit)
+    frames = [Frame(image=Image(images[i] if i % 3 else images[i][: H - 24, : W - 32], i / FPS))
+              for i in range(BUCKET_FRAMES)]
+    cuda_ext.LAUNCHES.clear()
+    _, _, _, init_at = run_engine(vo, frames)
+    launches["buckets"] = dict(cuda_ext.LAUNCHES)
+    kts, kpos, _ = vo.keyframe_trajectory()
+    idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, BUCKET_FRAMES - 1)
+    ate = float(ate_rmse(kpos, T_wc[idx][:, :3, 3], align=True, correct_scale=True)) if len(kts) >= 2 else None
+    row = {"phase": "extras", "check": "buckets", "bucket": list(EXTRAS_BUCKET), "keypoints_native": len(k0),
+           "keypoints_bucketed": len(k1), "interior": int(interior.sum()), "interior_within_half_px": near,
+           "bucketed_max_xy": k1.max(0).tolist(), "crop": [216, 288], "crop_keypoints": len(kc),
+           "crop_max_xy": kc.max(0).tolist() if len(kc) else None, "keypoint_overlap_plain": overlap,
+           "stage_input_shapes": shapes, "stage_launches": stage_launches,
+           "engine": {"bucket": [H, W], "frames": BUCKET_FRAMES, "initialised_at_frame": init_at,
+                      "keyframes": len(kts), "frames_lost": vo.tracker.frames_lost, "keyframe_ate": ate,
+                      "max_ate": BUCKET_MAX_ATE, "launches": launches["buckets"]},
+           "card": smi}
+    emit(row)
+    vo.shutdown()
+    if not (near > 0.99 and len(k1) > 100 and (k1[:, 0] <= W - border).all() and (k1[:, 1] <= H - border).all()):
+        raise AssertionError(f"extras (buckets): {near} of the interior keypoints within 0.5 px (> 0.99), "
+                             f"{len(k1)} keypoints, largest {k1.max(0).tolist()} (<= {W - border}, {H - border})")
+    if not (len(kc) > 100 and (kc[:, 0] <= 288 - border).all() and (kc[:, 1] <= 216 - border).all()):
+        raise AssertionError(f"extras (buckets): the 216x288 crop gave {len(kc)} keypoints, largest "
+                             f"{kc.max(0).tolist() if len(kc) else None}")
+    if overlap < 0.95:
+        raise AssertionError(f"extras (buckets): kernel path vs plain path overlap {overlap} (>= 0.95)")
+    if not ([1, EXTRAS_BUCKET[0], EXTRAS_BUCKET[1], 1] in shapes and stage_launches.get("stage1_conv", 0) > 0
+            and stage_launches.get("stage_conv", 0) > 0):
+        raise AssertionError(f"extras (buckets): stage kernels at {shapes}, launches {stage_launches}")
+    if init_at is None or ate is None or not ate < BUCKET_MAX_ATE:
+        raise AssertionError(f"extras (buckets): engine initialised at {init_at}, keyframe ATE {ate} (< {BUCKET_MAX_ATE})")
+    return row
+
+
+def subpixel_pairs(a, b):
+    """Two (integer picks, refined keypoints, valid) extractions of one frame:
+    the overlap of their integer picks, and over the common picks the
+    largest refined difference and the share within 1e-3 px."""
+    import numpy as np
+
+    ra = {tuple(p): q for p, q in zip(a[0][a[2]], a[1][a[2]])}
+    rb = {tuple(p): q for p, q in zip(b[0][b[2]], b[1][b[2]])}
+    common = sorted(set(ra) & set(rb))
+    diff = np.array([np.abs(ra[p] - rb[p]).max() for p in common]) if common else np.array([np.inf])
+    return {"integer_sets_equal": set(ra) == set(rb), "integer_overlap": len(common) / max(len(ra), len(rb), 1),
+            "refined_max_diff_px": float(diff.max()), "refined_within_1e-3": float((diff <= 1e-3).mean())}
+
+
+# the share of the common picks whose refined keypoints the float32 kernels
+# and their plain versions must place within 1e-3 px of each other, end to
+# end: the H100 (700 W) read 0.962 there and 0.132 in bf16 (PERF.md, PR 12)
+SUBPIXEL_WITHIN = 0.9
+
+
+def extras_subpixel(smi):
+    """Sub-pixel peaks on frame 0 of the seed-11 scene. (a) The refinement
+    on the card against the plain function on the CPU on the same score
+    maps (the kernel path's, float32): the same picks slot by slot, refined
+    keypoints within 1e-3 px, offsets most nonzero, and the same bank from
+    ``NeuralExtractor.extract``. (b) The kernels against their plain
+    versions on the card, end to end, in float32 and bf16: phase 5's
+    overlap of the integer picks (the same configuration without sub-pixel)
+    and, in float32, at least ``SUBPIXEL_WITHIN`` of the common picks'
+    refined keypoints within 1e-3 px (bf16's reading is reported: its score
+    maps round too coarsely for that). ``select_keypoints`` clamps every
+    offset to 0.5 px, so no bound on offsets is checked. (c) The plain
+    versions on the card against the CPU's in float32, reported: how far two
+    roundings of the same network move the picks."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.ops.keypoints import select_keypoints
+    from ur_mvo_tpu_torch.runtime.extractor import NeuralExtractor
+
+    cam = make_pinhole(W, H, FX, FX, W / 2, H / 2)
+    img = engine_scene(ENGINE_SEEDS[0])[0][0].image.get_image()
+
+    def config(sub, dtype):
+        def edit(c):
+            c.superpoint.subpixel = sub
+            c.runtime.compute_dtype = dtype
+
+        return extras_config(edit)
+
+    def extraction(dtype, kernels=True, device="cuda"):
+        """(integer picks, refined keypoints, valid) as host arrays."""
+        banks = [NeuralExtractor(config(sub, dtype), cam, device=device, kernels=kernels).extract(img)
+                 for sub in (False, True)]
+        return banks[0].kpts.cpu().numpy(), banks[1].kpts.cpu().numpy(), banks[0].valid.cpu().numpy()
+
+    # (a) one set of score maps, refined on the card and on the CPU
+    sp_cfg = config(True, "float32").superpoint
+    ext = NeuralExtractor(config(True, "float32"), cam, device="cuda")
+    x = torch.as_tensor(img, device="cuda").to(torch.float32) / 255.0
+    with torch.no_grad():
+        scores, desc, raw = ext.superpoint(x[None, :, :, None], nms_radius=sp_cfg.nms_radius, return_raw_scores=True)
+    kw = dict(capacity=sp_cfg.capacity, threshold=sp_cfg.keypoint_threshold, border=sp_cfg.remove_borders,
+              max_keypoints=sp_cfg.max_keypoints)
+    card = select_keypoints(scores[0], desc[0], raw_scores=raw[0], **kw)
+    host = select_keypoints(scores[0].cpu(), desc[0].cpu(), raw_scores=raw[0].cpu(), **kw)
+    ints = select_keypoints(scores[0], desc[0], **kw)
+    ints_host = select_keypoints(scores[0].cpu(), desc[0].cpu(), **kw)
+    path = ext.extract(img)
+    v = card.valid.cpu().numpy()
+    kc, kh, ki = card.kpts.cpu().numpy()[v], host.kpts.cpu().numpy()[v], ints.kpts.cpu().numpy()[v]
+    moved = kc - ki
+    same_maps = {"keypoints": int(v.sum()),
+                 "picks_equal": bool(torch.equal(ints.valid.cpu(), ints_host.valid) and torch.equal(ints.kpts.cpu(), ints_host.kpts)
+                                     and torch.equal(card.valid.cpu(), host.valid)),
+                 "refined_max_diff_px": float(np.abs(kc - kh).max()), "offsets_nonzero": float((moved != 0).any(-1).mean()),
+                 "extract_equal": bool(torch.equal(path.kpts, card.kpts) and torch.equal(path.valid, card.valid))}
+    row = {"phase": "extras", "check": "subpixel", "same_score_maps": same_maps, "card": smi}
+    for dtype in ("float32", "bfloat16"):
+        k, p = extraction(dtype), extraction(dtype, kernels=False)
+        row[f"kernels_vs_plain_{dtype}"] = {**subpixel_pairs(k, p), "keypoints": int(k[2].sum())}
+    row["plain_card_vs_cpu_float32"] = subpixel_pairs(extraction("float32", kernels=False),
+                                                      extraction("float32", kernels=False, device="cpu"))
+    emit(row)
+    if not (same_maps["picks_equal"] and same_maps["keypoints"] > MIN_KEYPOINTS and same_maps["extract_equal"]
+            and same_maps["refined_max_diff_px"] <= 1e-3 and same_maps["offsets_nonzero"] > 0.5):
+        raise AssertionError(f"extras (subpixel): on one set of score maps {same_maps}")
+    for dtype in ("float32", "bfloat16"):
+        r = row[f"kernels_vs_plain_{dtype}"]
+        if not (r["integer_overlap"] >= 0.95 and (dtype != "float32" or r["refined_within_1e-3"] >= SUBPIXEL_WITHIN)):
+            raise AssertionError(f"extras (subpixel, {dtype}): kernels vs plain {r}")
+    return row
+
+
+def extras_patch(smi, launches):
+    """``tests/test_patch_desc.py``'s from-scratch configuration through
+    ``UR_MVO.process`` on the card: ``superpoint_scratch_v2``, patch
+    descriptors, matcher ``nn``, float32, on a rendered plane (the port's
+    ``utils/synthscene``, ``bench_accuracy.py``'s plane scene)."""
+    import numpy as np
+
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.components import Frame, Image
+    from ur_mvo_tpu_torch.config import Configs
+    from ur_mvo_tpu_torch.engine import UR_MVO
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    cfg = Configs()
+    cfg.superpoint.capacity = 512
+    cfg.superpoint.max_keypoints = 400
+    cfg.superpoint.keypoint_threshold = 1e-4
+    cfg.superpoint.weights_path = PATCH_WEIGHTS
+    cfg.superpoint.descriptor_source = "patch"
+    cfg.superglue.matcher = "nn"
+    cfg.superglue.image_width, cfg.superglue.image_height = W, H
+    cfg.initializer.min_matches = 50
+    cfg.initializer.min_features_first = 100
+    cfg.backend.window_opt_frames = 8
+    cfg.backend.window_fixed_frames = 6
+    cfg.backend.ba_max_points = 1024
+    cfg.backend.ba_max_observations = 4096
+    cfg.backend.ba_iterations_phase1 = 6
+    cfg.backend.ba_iterations_phase2 = 3
+    cfg.runtime.compute_dtype = "float32"
+    images, T_wc, _ = render_sequence(PATCH_FRAMES, H, W, FX, seed=0, n_planes=0, z_background=4.0)
+    vo = UR_MVO(cfg, camera=make_pinhole(W, H, FX, FX, W / 2, H / 2), device="cuda")
+    cuda_ext.LAUNCHES.clear()
+    _, _, _, init_at = run_engine(vo, [Frame(image=Image(images[i], i / FPS)) for i in range(PATCH_FRAMES)])
+    launches["patch"] = dict(cuda_ext.LAUNCHES)
+    kts, kpos, _ = vo.keyframe_trajectory()
+    idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, PATCH_FRAMES - 1)
+    ate = float(ate_rmse(kpos, T_wc[idx][:, :3, 3], align=True, correct_scale=True)) if len(kts) >= 2 else None
+    row = {"phase": "extras", "check": "patch", "frames": PATCH_FRAMES, "initialised_at_frame": init_at,
+           "keyframes": len(kts), "frames_lost": vo.tracker.frames_lost, "keyframe_ate": ate, "max_ate": PATCH_MAX_ATE,
+           "launches": launches["patch"], "card": smi}
+    emit(row)
+    vo.shutdown()
+    if init_at is None or len(kts) < PATCH_MIN_KEYFRAMES or ate is None or not ate < PATCH_MAX_ATE:
+        raise AssertionError(f"extras (patch): initialised at {init_at}, {len(kts)} keyframes (>= {PATCH_MIN_KEYFRAMES}), "
+                             f"keyframe ATE {ate} (< {PATCH_MAX_ATE})")
+    missing = [k for k in ("stage1_conv", "stage_conv", "pose_gn") if launches["patch"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"extras (patch): kernels of the path never launched: {missing}")
+    return row
+
+
+def store_fields_equal(a, b):
+    """The snapshot's fields of two map stores that differ, by name."""
+    import numpy as np
+
+    differ = [f for f in a._SNAPSHOT_FIELDS + ("mp_desc", "kf_gdesc")
+              if not (getattr(a, f).dtype == getattr(b, f).dtype and np.array_equal(getattr(a, f), getattr(b, f)))]
+    for f in ("kf_desc", "kf_scores"):
+        x, y = getattr(a, f), getattr(b, f)
+        if sorted(x) != sorted(y) or not all(np.array_equal(x[k], y[k]) for k in x):
+            differ.append(f)
+    if (a._next_kf, a._next_mp, a._free_kf, a._free_mp, a.frame_id_to_slot) != (
+            b._next_kf, b._next_mp, b._free_kf, b._free_mp, b.frame_id_to_slot):
+        differ.append("allocation")
+    if len(a.loop_edges) != len(b.loop_edges):
+        differ.append("loop_edges")
+    return differ
+
+
+def extras_snapshot(smi, launches):
+    """Session A: the production mono engine over frames 0-15 of the seed-11
+    scene, then ``save_map_snapshot``; ``MapStore.load_snapshot`` must give
+    back every field bit for bit. Session B: a fresh engine,
+    ``load_map_snapshot``, frames 16-23 (``tests/test_map_reuse.py``'s resume
+    protocol): initialised without an init attempt, at least one keyframe
+    added, the keyframe ATE over both sessions (one similarity alignment)
+    beside the JAX package's; then ``save_map_ply``, one vertex per good map
+    point."""
+    import tempfile
+
+    import numpy as np
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.runtime.map_store import MapStore
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+
+    frames, T_wc = engine_scene(ENGINE_SEEDS[0])
+    cuda_ext.LAUNCHES.clear()
+    vo_a = extras_engine()
+    run_engine(vo_a, frames[:SNAPSHOT_SPLIT])
+    st_a = vo_a.tracker.backend.store
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        vo_a.save_map_snapshot(path)
+        differ = store_fields_equal(MapStore.load_snapshot(path, st_a.cfg), st_a)
+        vo_b = extras_engine()
+        attempts = []
+        init = vo_b.tracker._try_initialize
+        vo_b.tracker._try_initialize = lambda *a, **k: attempts.append(1) or init(*a, **k)
+        vo_b.load_map_snapshot(path)
+        on_load = vo_b.tracker.initialized
+        run_engine(vo_b, frames[SNAPSHOT_SPLIT:])
+        launches["snapshot"] = dict(cuda_ext.LAUNCHES)
+        ply = os.path.join(tmp, "map.ply")
+        vo_b.save_map_ply(ply)
+        with open(ply) as f:
+            lines = f.read().splitlines()
+    st = vo_b.tracker.backend.store
+    good = int((st.mp_good & ~st.mp_bad).sum())
+    vertices = len(lines) - lines.index("end_header") - 1
+    kts, kpos, _ = vo_b.keyframe_trajectory()
+    idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, ENGINE_FRAMES - 1)
+    ate = float(ate_rmse(kpos, T_wc[idx][:, :3, 3], align=True, correct_scale=True))
+    row = {"phase": "extras", "check": "snapshot", "frames": [SNAPSHOT_SPLIT, ENGINE_FRAMES - SNAPSHOT_SPLIT],
+           "keyframes_a": st_a.num_keyframes(), "keyframes_after_b": st.num_keyframes(),
+           "fields_differing_after_load": differ, "initialised_on_load": on_load, "init_attempts_b": len(attempts),
+           "relocalizations_b": vo_b.tracker.relocalizations, "frames_lost_b": vo_b.tracker.frames_lost,
+           "keyframe_ate_both_sessions": ate, "jax_cpu": SNAPSHOT_JAX, "ply_vertices": vertices,
+           "good_points": good, "launches": launches["snapshot"], "card": smi}
+    emit(row)
+    vo_a.shutdown()
+    vo_b.shutdown()
+    if differ:
+        raise AssertionError(f"extras (snapshot): fields {differ} differ after load_snapshot")
+    if not on_load or attempts or st.num_keyframes() <= st_a.num_keyframes():
+        raise AssertionError(f"extras (snapshot): session B initialised on load {on_load}, init attempts "
+                             f"{len(attempts)}, keyframes {st_a.num_keyframes()} -> {st.num_keyframes()}")
+    # the JAX package's keyframe ATE over both sessions is above mono/3d's
+    # gate on this scene (SNAPSHOT_JAX): the ATE is printed beside it, and
+    # the sessions are held to their health (ROADMAP C10)
+    if not np.isfinite(ate) or vo_b.tracker.frames_lost > MAX_FRAMES_LOST:
+        raise AssertionError(f"extras (snapshot): keyframe ATE {ate}, {vo_b.tracker.frames_lost} frames lost in "
+                             f"session B (<= {MAX_FRAMES_LOST})")
+    if vertices != good or good == 0:
+        raise AssertionError(f"extras (snapshot): the PLY holds {vertices} vertices for {good} good map points")
+    return row
+
+
+def extras_phase(smi):
+    """Phase 13: each feature of the slice through the entry points a user
+    calls, at the production operating point, under deterministic
+    algorithms (as phase 8). A failed check is reported and the phase goes on
+    to the next; it fails at the end if any did. Returns each path's launch
+    counts."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    launches, failures = {}, []
+    for name, fn, args in (("mono/3d+local_map", extras_local_map, (smi, launches)),
+                           ("buckets", extras_buckets, (smi, launches)), ("subpixel", extras_subpixel, (smi,)),
+                           ("patch", extras_patch, (smi, launches)), ("snapshot", extras_snapshot, (smi, launches))):
+        t0 = time.perf_counter()
+        try:
+            fn(*args)
+        except AssertionError as e:
+            emit({"phase": "extras", "check": name, "failed": str(e)})
+            failures.append(name)
+        emit({"phase": "extras", "check": name, "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"extras: checks failed: {failures}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2612,6 +3280,15 @@ def main() -> int:
             return 1
         print(smi, flush=True)
         return 0
+    if "--only-extras" in sys.argv:
+        try:
+            extras_phase(smi)
+        except AssertionError as e:
+            emit({"phase": "extras", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
     if "--only-ba" in sys.argv:
         torch.use_deterministic_algorithms(True, warn_only=True)
         _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
@@ -2646,7 +3323,8 @@ def main() -> int:
     launches = timed("engine", engine_phase, smi, on_failure={})
     long_launches, long_shape = timed("long", long_phase, smi, on_failure=({}, BA_KERNEL_SHAPES[0]))
     metric_launches = timed("metric", metric_phase, smi, on_failure={})
-    by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches}
+    extras_launches = timed("extras", extras_phase, smi, on_failure={})
+    by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches, **extras_launches}
     rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
     # the sorted kernel's launches are those of global_optimize's full BA;
     # the unsorted kernel runs only where "pallas" is asked for

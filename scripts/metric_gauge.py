@@ -31,7 +31,10 @@ protocol for ``rgbd/3d`` or ``rgbd/long`` (matcher ``hybrid``) in the JAX
 package per scene seed: the ATE without scale correction (for
 ``rgbd/long`` online and after ``global_optimize``) and the keyframes, one
 JSON line a seed (``rgbd/long``: ~7 min a seed; the port's own sweep is
-``chip_smoke.py --metric-seeds`` on the card).
+``chip_smoke.py --metric-seeds`` on the card). ``--reference
+mono/3d+local_map SEEDS`` and ``--reference snapshot SEEDS`` run
+``chip_smoke.py`` phase 13's local-map and snapshot protocols in the JAX
+package (production mono configuration, matcher ``sg``).
 """
 
 from __future__ import annotations
@@ -191,10 +194,98 @@ def reference_runs(cell, seeds):
         print(json.dumps(row), flush=True)
 
 
+def extras_reference(cell, seeds):
+    """``chip_smoke.py`` phase 13's ``mono/3d+local_map`` and ``snapshot``
+    in the JAX package: the production mono configuration
+    (``bench_accuracy.py``'s matcher ``sg``) at 240x320 over the ``mono/3d``
+    scenes, one JSON line a seed. ``mono/3d+local_map``: local-map tracking
+    on over 24 frames, the scale-corrected ATE of the emitted trajectory
+    (None below 5 poses: a failed run of the protocol) and of the keyframe
+    trajectory, keyframes, frames lost, relocalizations. ``snapshot``: session A over
+    frames 0-15, ``save_map_snapshot``; session B a fresh engine,
+    ``load_map_snapshot``, frames 16-23; the scale-corrected keyframe ATE
+    over both sessions, B's keyframes added, relocalizations and frames
+    lost (the JAX tracker counts lost frames only as its consecutive
+    ``_lost_count``, read at the end)."""
+    import tempfile
+
+    import bench_accuracy as ba
+    import numpy as np
+
+    from ur_mvo_tpu.camera import make_pinhole
+    from ur_mvo_tpu.components import Frame, Image
+    from ur_mvo_tpu.config import SensorSetup
+    from ur_mvo_tpu.engine import UR_MVO
+    from ur_mvo_tpu.utils.metrics import ate_rmse
+    from ur_mvo_tpu.utils.synthscene import render_sequence
+
+    N, SPLIT = 24, 16
+
+    def engine(local_map=False):
+        """The JAX engine, its tracker counting as the port's does: a frame
+        that ``_handle_lost`` could not re-anchor is lost, one that
+        ``_relocalize`` re-anchored is a relocalization."""
+        cfg = ba._production_cfg("sg")
+        cfg.local_map_tracking.enabled = local_map
+        vo = UR_MVO(cfg, SensorSetup.MONO, camera=make_pinhole(ba.W, ba.H, ba.FX, ba.FX, ba.W / 2, ba.H / 2))
+        tr, count = vo.tracker, {"lost": 0, "reloc": 0}
+        handle_lost, relocalize = tr._handle_lost, tr._relocalize
+
+        def lost(*a, **k):
+            out = handle_lost(*a, **k)
+            count["lost"] += out is None
+            return out
+
+        def reloc(*a, **k):
+            out = relocalize(*a, **k)
+            count["reloc"] += out is not None
+            return out
+
+        tr._handle_lost, tr._relocalize, vo.count = lost, reloc, count
+        return vo
+
+    vo = engine(local_map=cell == "mono/3d+local_map")
+    for seed in seeds:
+        images, T_wc, _ = render_sequence(N, ba.H, ba.W, ba.FX, seed=seed, **ba.SCENES["3d"])
+        row = {"cell": cell, "seed": seed}
+        vo.reset()
+        vo.count.update(lost=0, reloc=0)
+        if cell == "mono/3d+local_map":
+            ts, pos = ba._run_sequence(vo, images, None, None, "mono")
+            row.update(ate=None, poses_emitted=len(ts))
+            if len(ts) >= 5:
+                idx = np.clip((ts * FPS).round().astype(int), 0, N - 1)
+                row["ate"] = float(ate_rmse(pos, T_wc[idx][:, :3, 3], align=True, correct_scale=True))
+            kts, kpos, _ = vo.keyframe_trajectory()
+            kidx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, N - 1)
+            row.update(keyframe_ate=float(ate_rmse(np.asarray(kpos), T_wc[kidx][:, :3, 3], align=True,
+                                                   correct_scale=True)) if len(kts) >= 3 else None,
+                       keyframes=len(kts), keyframe_frame_ids=kidx.tolist(), frames_lost=vo.count["lost"],
+                       relocalizations=vo.count["reloc"])
+        else:
+            ba._run_sequence(vo, images[:SPLIT], None, None, "mono")
+            row["keyframes_a"] = vo.tracker.backend.store.num_keyframes()
+            with tempfile.TemporaryDirectory() as tmp:
+                vo.save_map_snapshot(os.path.join(tmp, "map.npz"))
+                vo_b = engine()
+                vo_b.load_map_snapshot(os.path.join(tmp, "map.npz"))
+            initialised = vo_b.tracker.initialized
+            for i in range(SPLIT, N):
+                vo_b.process(Frame(image=Image(images[i], i / FPS)))
+            kts, kpos, _ = vo_b.keyframe_trajectory()
+            idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, N - 1)
+            row.update(initialised_on_load=initialised, keyframes_after_b=vo_b.tracker.backend.store.num_keyframes(),
+                       keyframe_ate_both_sessions=float(ate_rmse(np.asarray(kpos), T_wc[idx][:, :3, 3], align=True,
+                                                                 correct_scale=True)),
+                       frames_lost_b=vo_b.count["lost"], relocalizations_b=vo_b.count["reloc"])
+        print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ba", nargs=2, type=int, metavar=("SEED", "FRAME"))
-    ap.add_argument("--reference", nargs=2, metavar=("CELL", "SEEDS"), help="rgbd/3d or rgbd/long, comma list")
+    ap.add_argument("--reference", nargs=2, metavar=("CELL", "SEEDS"),
+                    help="rgbd/3d, rgbd/long, mono/3d+local_map or snapshot; a comma list of seeds")
     args = ap.parse_args()
     import jax
     import torch
@@ -205,7 +296,8 @@ def main():
     if args.ba:
         ba_at(*args.ba)
     if args.reference:
-        reference_runs(args.reference[0], [int(s) for s in args.reference[1].split(",")])
+        cell, seeds = args.reference[0], [int(s) for s in args.reference[1].split(",")]
+        (extras_reference if cell in ("mono/3d+local_map", "snapshot") else reference_runs)(cell, seeds)
 
 
 if __name__ == "__main__":

@@ -208,21 +208,21 @@ def test_what_the_slice_leaves_out_raises():
     for setup in (tconfig.SensorSetup.STEREO, tconfig.SensorSetup.RGBD):
         vo = UR_MVO(tconfig.Configs(), setup, camera=cam, extractor=oracle, device="cpu")
         assert vo.setup == setup and vo.tracker.device.type == "cpu"
+    # local-map tracking and the map API are ported: they build, and
+    # adopt_map asks for a map with keyframes
     cfg = tconfig.Configs()
     cfg.local_map_tracking.enabled = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam, extractor=oracle, device="cpu")
-    cfg = tconfig.Configs()
     cfg.superpoint.capacity = 16
     vo = UR_MVO(cfg, tconfig.SensorSetup.MONO, camera=cam, extractor=oracle, device="cpu")
+    assert callable(vo.save_map_snapshot) and callable(vo.tracker.backend.store.save_snapshot)
+    with pytest.raises(ValueError, match="no keyframes"):
+        vo.tracker.adopt_map()
+    # what is left out still raises
     bank = oracle.extract_with_pose(np.eye(4, dtype=np.float32))
     with pytest.raises(NotImplementedError, match="precomputed"):
         vo.tracker.process(bank, 0.0, precomputed_match=object())
     with pytest.raises(NotImplementedError):
         vo.tracker.process_chunk([], [])
-    with pytest.raises(NotImplementedError):
-        vo.tracker.adopt_map()
-    assert not hasattr(vo.tracker.backend.store, "save_snapshot")
 
 
 def test_engine_tracker_backend_default_to_cuda():

@@ -3,12 +3,14 @@
 ``UR_MVO(config, setup, device=...)`` for the monocular, stereo and RGB-D
 setups, with ``process(Frame) ->
 List[Pose] | None``, SLERP interpolation of the frames between keyframes,
-``process_directory``, ``reset``, ``shutdown``. Poses come back
-synchronously from the tracker. ``device`` defaults to ``cuda`` and raises
-without it; the tests pass ``device="cpu"``.
+``process_directory``, ``reset``, ``shutdown``, and the map API:
+``save_map_snapshot``, ``load_map_snapshot`` (localization mode against a
+saved map) and ``save_map_ply``. Poses come back synchronously from the
+tracker. ``device`` defaults to ``cuda`` and raises without it; the tests
+pass ``device="cpu"``.
 
-Not ported yet: map snapshots, the chunked sequence program
-(``process_sequence`` feeds ``process`` frame by frame).
+Not ported yet: the chunked sequence program (``process_sequence`` feeds
+``process`` frame by frame).
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from ur_mvo_tpu_torch.device import DeviceLike, resolve_device
 from ur_mvo_tpu_torch.ops.lie import rotmat_to_quat
 from ur_mvo_tpu_torch.runtime.extractor import NeuralExtractor
 from ur_mvo_tpu_torch.runtime.frontend import Tracker
+from ur_mvo_tpu_torch.runtime.map_store import MapStore
 from ur_mvo_tpu_torch.utils.tum_io import write_tum
+from ur_mvo_tpu_torch.utils.viz import save_map_ply
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -227,6 +231,33 @@ class UR_MVO:
     def save_trajectory(self, path: str) -> None:
         ts, t, q = self.keyframe_trajectory()
         write_tum(path, list(ts), t, q)
+
+    def save_map_snapshot(self, path: str) -> None:
+        """Persist the whole map (keyframes, map points, observer matrix,
+        covisibility, descriptor banks, loop edges) as npz, for resume or
+        localization against it; the JAX package reads it too."""
+        self.tracker.backend.flush_pending_ba()
+        self.tracker.backend.store.save_snapshot(path)
+
+    def load_map_snapshot(self, path: str) -> None:
+        """Load a saved map and enter localization mode: the tracker starts
+        initialized against it (newest keyframe as reference, relocalization
+        force-enabled and pre-armed), so the next frames either resume
+        tracking or re-anchor anywhere in the map (``Tracker.adopt_map``)."""
+        backend = self.tracker.backend
+        backend.flush_pending_ba()
+        backend.store = MapStore.load_snapshot(path, backend.store.cfg)
+        self.config.backend.relocalization = True
+        self.tracker.adopt_map()
+        self.last_pose = None
+        self.accumulated_samples = 0
+        self._trajectory = []
+
+    def save_map_ply(self, path: str) -> None:
+        """Write the triangulated map cloud (good, not culled points) as PLY."""
+        self.tracker.backend.flush_pending_ba()
+        st = self.tracker.backend.store
+        save_map_ply(path, st.mp_pos[st.mp_good & ~st.mp_bad])
 
     def reset(self, config=None, setup: Optional[Setup] = None) -> None:
         """Fresh map/trajectory. Injected camera/extractor survive the

@@ -133,14 +133,19 @@ class SuperPoint(nn.Module):
         x = F.relu(self.convDa(_nchw(feat)))
         return _l2_normalize(_nhwc(self.convDb(x)))
 
-    def forward(self, image: torch.Tensor, nms_radius: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, image: torch.Tensor, nms_radius: int = 4, return_raw_scores: bool = False) -> tuple:
         """(B, H, W, 1) image in [0, 1] -> (scores (B, H, W) float32 after
         NMS, descriptors (B, Hc, Wc, 256) float32). The network runs in the
-        parameter dtype; scores are cast to float32 before NMS."""
+        parameter dtype; scores are cast to float32 before NMS. With
+        ``return_raw_scores`` the pre-NMS score map is a third output: NMS
+        zeroes the 3x3 neighbourhoods that sub-pixel refinement needs
+        (``ops.keypoints.select_keypoints(raw_scores=...)``)."""
         x = image.to(self.dtype)
         feat = self.backbone(x)
         scores = self.detector_head(feat).float()
         desc = self.descriptor_head(feat).float()
+        if return_raw_scores:
+            return simple_nms(scores, radius=nms_radius), desc, scores
         return simple_nms(scores, radius=nms_radius), desc
 
 

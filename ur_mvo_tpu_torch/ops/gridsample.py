@@ -41,6 +41,32 @@ def grid_sample_nearest_corners(feature_map: torch.Tensor, grid_xy: torch.Tensor
     return v_nw * nw[:, None] + v_ne * ne[:, None] + v_sw * sw[:, None] + v_se * se[:, None]
 
 
+def patch_descriptors(img: torch.Tensor, kpts_xy: torch.Tensor, patch: int = 16, stride: float = 1.0) -> torch.Tensor:
+    """Normalized intensity-patch descriptors sampled on the device.
+
+    ``img``: (H, W) grayscale in [0, 1]; ``kpts_xy``: (K, 2) pixel
+    coordinates. Bilinearly samples a ``patch`` x ``patch`` window (spacing
+    ``stride`` px) centred on each keypoint and returns zero-mean,
+    L2-normalized flattened patches, (K, patch**2): 256-d at the default
+    size, a drop-in for SuperPoint's descriptors
+    (``superpoint.descriptor_source: patch``, a weights-free source)."""
+    H, W = img.shape
+    K = kpts_xy.shape[0]
+    half = (patch - 1) / 2.0
+    offs = (torch.arange(patch, dtype=torch.float32, device=img.device) - half) * stride
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    # (K, patch*patch) absolute sample coordinates
+    sx = kpts_xy[:, 0:1] + ox.reshape(1, -1)
+    sy = kpts_xy[:, 1:2] + oy.reshape(1, -1)
+    gx = sx / (W - 1) * 2.0 - 1.0
+    gy = sy / (H - 1) * 2.0 - 1.0
+    grid = torch.stack([gx, gy], dim=-1).reshape(K * patch * patch, 2)
+    vals = grid_sample_nearest_corners(img[:, :, None], grid).reshape(K, patch * patch)
+    vals = vals - torch.mean(vals, dim=1, keepdim=True)
+    norm = torch.clamp(torch.linalg.vector_norm(vals, dim=1, keepdim=True), min=1e-6)
+    return vals / norm
+
+
 def sample_descriptors(desc_map: torch.Tensor, kpts_xy: torch.Tensor, cell: int = 8) -> torch.Tensor:
     """Sample L2-normalized descriptors at keypoint pixel locations.
 

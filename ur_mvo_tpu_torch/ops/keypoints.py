@@ -52,6 +52,7 @@ def select_keypoints(
     max_keypoints: int = 1000,
     mask: Optional[torch.Tensor] = None,
     cell: int = 8,
+    raw_scores: Optional[torch.Tensor] = None,
 ) -> FeatureBank:
     """Dense maps -> top-K fixed-shape :class:`FeatureBank`.
 
@@ -59,6 +60,10 @@ def select_keypoints(
     ``desc_map``: (H//cell, W//cell, D) coarse descriptor map.
     ``mask``: optional (H, W) semantic mask; nonzero keeps a pixel. When
     given, it *replaces* border removal (the reference's behavior).
+    ``raw_scores``: optional (H, W) PRE-NMS score map: sub-pixel peak
+    refinement by a 1-D quadratic fit per axis over the 3x3 raw-score
+    neighbourhood, offsets clamped to +-0.5 px (NMS'd scores cannot serve:
+    NMS zeroes exactly the neighbourhoods the fit needs).
     """
     H, W = score_map.shape
     dev = score_map.device
@@ -78,8 +83,20 @@ def select_keypoints(
         # degenerate tiny image: pad the candidate pool to capacity
         flat = torch.cat([flat, flat.new_zeros(capacity - flat.shape[0])])
     top_scores, top_idx = top_k_ordered(flat, k)
-    ys = (top_idx // W).to(torch.float32)
-    xs = (top_idx % W).to(torch.float32)
+    yi, xi = top_idx // W, top_idx % W
+    ys = yi.to(torch.float32)
+    xs = xi.to(torch.float32)
+    if raw_scores is not None:
+        def at(dy, dx):
+            return raw_scores[torch.clamp(yi + dy, 0, H - 1), torch.clamp(xi + dx, 0, W - 1)]
+
+        sc, sl, sr = at(0, 0), at(0, -1), at(0, 1)
+        su, sd = at(-1, 0), at(1, 0)
+        # local max: denominators positive; guard degenerate plateaus
+        dx_off = 0.5 * (sr - sl) / torch.clamp(2.0 * sc - sl - sr, min=1e-8)
+        dy_off = 0.5 * (sd - su) / torch.clamp(2.0 * sc - su - sd, min=1e-8)
+        xs = xs + torch.clamp(dx_off, -0.5, 0.5)
+        ys = ys + torch.clamp(dy_off, -0.5, 0.5)
 
     valid = top_scores > threshold
     if max_keypoints < capacity:

@@ -10,13 +10,16 @@ mutual-NN min-match floor; or ``hybrid``, mutual-NN with SuperGlue's
 matches taken when NN starves -> 8-point fundamental RANSAC outlier
 rejection. Both stay on the device: no host sync inside either call.
 
+Options of ``superpoint``: ``subpixel`` refines each keypoint by a
+quadratic fit over the pre-NMS scores; ``descriptor_source="patch"``
+replaces the network's descriptors by normalized 16x16 intensity patches
+of the rectified image; ``resolution_buckets`` edge-pads each input to the
+smallest bucket that fits and masks the pad out of keypoint selection.
+
 ``OracleExtractor`` is the test double: given a synthetic scene (world
 points + ground-truth camera poses) it produces exact projections with
 configurable noise and identity descriptors, so the whole VO runtime can
 be driven without trained weights.
-
-Not ported yet: resolution buckets, sub-pixel peaks and patch
-descriptors; a configuration that asks for one raises.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ur_mvo_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ur_mvo_tpu_torch.models import superglue, superpoint
 from ur_mvo_tpu_torch.models.superglue import SuperGlue
 from ur_mvo_tpu_torch.models.superpoint import SuperPoint
+from ur_mvo_tpu_torch.ops.gridsample import patch_descriptors
 from ur_mvo_tpu_torch.ops.keypoints import FeatureBank, select_keypoints
 from ur_mvo_tpu_torch.ops.matching import (
     Matches,
@@ -63,11 +67,17 @@ class NeuralExtractor:
         self.camera = camera
         self.device = dev = resolve_device(device)
         sp_cfg, sg_cfg = cfg.superpoint, cfg.superglue
-        if sp_cfg.resolution_buckets or sp_cfg.subpixel or sp_cfg.descriptor_source != "network":
-            raise NotImplementedError(
-                "ur_mvo_tpu_torch.NeuralExtractor: resolution buckets, subpixel peaks and patch "
-                "descriptors are not ported yet"
-            )
+        # resolution buckets, smallest first; each (bucket, side) gets its
+        # rectify map at first use (_bucket_rect)
+        self._buckets = None
+        if sp_cfg.resolution_buckets:
+            self._buckets = sorted((int(h), int(w)) for h, w in sp_cfg.resolution_buckets)
+            ragged = [b for b in self._buckets if b[0] % 8 or b[1] % 8]
+            if ragged:
+                # the encoder's three 2x2 pools and the stage kernel need
+                # every bucket side a multiple of 8
+                raise ValueError(f"resolution_buckets: {ragged} not multiples of 8 in both sides")
+        self._bucket_progs: dict = {}
         dt = compute_dtype(cfg.runtime.compute_dtype)
         init_gen = torch.Generator().manual_seed(cfg.runtime.seed)
 
@@ -126,22 +136,83 @@ class NeuralExtractor:
     def extract(self, image: np.ndarray, mask: Optional[np.ndarray] = None, right: bool = False) -> FeatureBank:
         """(H, W) uint8 image (numpy or tensor) -> :class:`FeatureBank` on
         the device. ``mask`` nonzero keeps a pixel (replaces border removal).
-        ``right`` rectifies with the right camera's map."""
+        ``right`` rectifies with the right camera's map. With resolution
+        buckets the image goes through :meth:`_extract_bucketed`."""
+        if self._buckets is not None:
+            return self._extract_bucketed(image, mask, right)
+        return self._extract_impl(
+            torch.as_tensor(image, device=self.device),
+            None if mask is None else torch.as_tensor(mask, device=self.device),
+            self._rect_right if right else self._rect,
+        )
+
+    def _extract_impl(self, image: torch.Tensor, mask: Optional[torch.Tensor], rect: Optional[torch.Tensor]):
+        """Rectify, SuperPoint, keypoint selection (sub-pixel when asked) and
+        the descriptors (the network's, or patches of the rectified image)."""
         sp_cfg = self.cfg.superpoint
-        rect = self._rect_right if right else self._rect
-        img = torch.as_tensor(image, device=self.device).to(torch.float32) / 255.0
+        img = image.to(torch.float32) / 255.0
         if rect is not None:
             img = remap_bilinear(img, rect)
-        scores, desc = self.superpoint(img[None, :, :, None], nms_radius=sp_cfg.nms_radius)
-        return select_keypoints(
-            scores[0],
-            desc[0],
+        out = self.superpoint(img[None, :, :, None], nms_radius=sp_cfg.nms_radius,
+                              return_raw_scores=sp_cfg.subpixel)
+        bank = select_keypoints(
+            out[0][0],
+            out[1][0],
             capacity=sp_cfg.capacity,
             threshold=sp_cfg.keypoint_threshold,
             border=sp_cfg.remove_borders,
             max_keypoints=sp_cfg.max_keypoints,
-            mask=None if mask is None else torch.as_tensor(mask, device=self.device),
+            mask=mask,
+            raw_scores=out[2][0] if sp_cfg.subpixel else None,
         )
+        if sp_cfg.descriptor_source == "patch":
+            bank = bank._replace(desc=patch_descriptors(img, bank.kpts))
+        return bank
+
+    def _bucket_rect(self, bh: int, bw: int, right: bool) -> Optional[torch.Tensor]:
+        """The rectify map of one (bucket, side), built once: the calibrated
+        map over its top-left crop (bucketed inputs are top-left crops of
+        the calibrated sensor, so absolute source coordinates stay valid)
+        and identity (x, y) source coordinates over the pad."""
+        key = (bh, bw, right)
+        if key not in self._bucket_progs:
+            cam = self.camera
+            base = cam.undistort_map_right if right and cam.undistort_map_right is not None else cam.undistort_map
+            rect = None
+            if base is not None:
+                m = np.asarray(base)
+                H0, W0 = m.shape[:2]
+                mp = np.stack(np.meshgrid(np.arange(bw, dtype=np.float32), np.arange(bh, dtype=np.float32)), -1)
+                mp[: min(H0, bh), : min(W0, bw)] = m[:bh, :bw]
+                rect = torch.as_tensor(mp, device=self.device)
+            self._bucket_progs[key] = rect
+        return self._bucket_progs[key]
+
+    def _extract_bucketed(self, image, mask, right: bool) -> FeatureBank:
+        """Pad-to-bucket path: edge-pad bottom/right to the smallest-area
+        bucket that fits, mask the pad (plus the true bottom/right border
+        margin, which reproduces border removal at the TRUE edges) out of
+        keypoint selection. The mask replaces border removal; keypoint
+        coordinates are unchanged by the padding."""
+        image = image.cpu().numpy() if isinstance(image, torch.Tensor) else np.asarray(image)
+        h, w = image.shape[:2]
+        fits = [(bh * bw, bh, bw) for bh, bw in self._buckets if bh >= h and bw >= w]
+        if not fits:
+            raise ValueError(f"input {h}x{w} exceeds every resolution bucket {self._buckets}")
+        _, bh, bw = min(fits)
+        img = np.pad(image, ((0, bh - h), (0, bw - w)), mode="edge") if (h, w) != (bh, bw) else image
+        b = self.cfg.superpoint.remove_borders
+        m = np.ones((bh, bw), np.uint8)
+        if mask is not None:
+            mask = mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
+            m[:h, :w] = (mask != 0)[:h, :w]
+        if h < bh:
+            m[max(h - b, 0):, :] = 0
+        if w < bw:
+            m[:, max(w - b, 0):] = 0
+        dev = self.device
+        return self._extract_impl(torch.as_tensor(img, device=dev), torch.as_tensor(m, device=dev),
+                                  self._bucket_rect(bh, bw, right))
 
     @torch.no_grad()
     def match(self, bank0: FeatureBank, bank1: FeatureBank, outlier_rejection: bool = True,

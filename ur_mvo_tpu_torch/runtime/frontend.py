@@ -16,9 +16,12 @@ refinement all stay on ``device``) and reads back ONE packed vector a
 frame; decisions (init success, fallback, keyframe) are taken on the host
 from it. Stereo frames (``bank_right``) match left to right and gate each
 pair by disparity and row inside the same step; RGB-D frames
-(``depth_lookup``) seed map points from depth at keyframe insertion. Not
-ported, raising if asked for: local-map tracking, chunked processing, map
-adoption, precomputed matches.
+(``depth_lookup``) seed map points from depth at keyframe insertion.
+Local-map tracking (``local_map_tracking.enabled``) takes the two-program
+flow and, after a good track, associates the window's map points by
+projection and refines the pose once more on them (:meth:`_track_local_map`).
+:meth:`Tracker.adopt_map` starts the tracker on a loaded map. Not ported,
+raising if asked for: chunked processing, precomputed matches.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from ur_mvo_tpu_torch.camera import Camera
 from ur_mvo_tpu_torch.config import Configs, SensorSetup
 from ur_mvo_tpu_torch.device import DeviceLike, resolve_device
 from ur_mvo_tpu_torch.ops.epipolar import two_view_init
+from ur_mvo_tpu_torch.ops.keypoints import FeatureBank
 from ur_mvo_tpu_torch.ops.lie import mv
+from ur_mvo_tpu_torch.ops.local_map import search_by_projection
 from ur_mvo_tpu_torch.ops.matching import Matches
 from ur_mvo_tpu_torch.ops.pnp import ransac_pnp
 from ur_mvo_tpu_torch.ops.pose_opt import PoseObs, optimize_pose
@@ -142,8 +147,6 @@ class Tracker:
 
     def __init__(self, cfg: Configs, camera: Camera, extractor, backend: Optional[Backend] = None,
                  publisher: Optional[Publisher] = None, device: DeviceLike = None, kernels: bool = True):
-        if cfg.local_map_tracking.enabled:
-            raise NotImplementedError("local_map_tracking.enabled: local-map tracking is not ported yet")
         if device is None:
             device = getattr(extractor, "device", None)
         self.device = resolve_device(device)
@@ -214,11 +217,11 @@ class Tracker:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _optimize(self, R0, t0, obs: PoseObs):
+    def _optimize(self, R0, t0, obs: PoseObs, rounds: int = 4):
         cam, topt = self.camera, self.cfg.tracking_optimization
         return optimize_pose(
             R0, t0, obs, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-            chi2_mono=topt.mono_point, chi2_stereo=topt.stereo_point, plain=self._plain,
+            chi2_mono=topt.mono_point, chi2_stereo=topt.stereo_point, rounds=rounds, plain=self._plain,
         )
 
     @torch.no_grad()
@@ -248,6 +251,22 @@ class Tracker:
         when the PnP prior teleported the optimizer into a garbage basin
         (see the jump guard in _track_frame)."""
         return self._optimize(R_last_cw, t_last_cw, PoseObs(X=X, uv=uvr, valid=valid))
+
+    @torch.no_grad()
+    def _local_map_kernel(self, R_cw, t_cw, mp_pos, mp_desc, mp_valid, bank):
+        """Project the local map points, associate them by descriptor and
+        refine the pose once more on the expanded set: one round of pose GN
+        (Huber on) over the (capacity,) observations, seeded at the tracked
+        pose. Returns (LocalMapMatches, PoseOptResult), on the device."""
+        cam, lmt = self.camera, self.cfg.local_map_tracking
+        mm = search_by_projection(
+            R_cw, t_cw, mp_pos, mp_desc, mp_valid, bank,
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+            radius_px=lmt.radius_px, min_similarity=lmt.min_similarity, ratio=lmt.ratio,
+        )
+        idx = torch.clamp(mm.feat_idx, min=0).to(torch.int64)
+        uv = torch.cat([bank.kpts[idx], -torch.ones((mp_pos.shape[0], 1), dtype=torch.float32, device=mp_pos.device)], 1)
+        return mm, self._optimize(R_cw, t_cw, PoseObs(X=mp_pos, uv=uv, valid=mm.valid), rounds=1)
 
     def _two_view(self, p1, p2, valid):
         init_cfg = self.cfg.initializer
@@ -339,8 +358,9 @@ class Tracker:
         uvr = None  # the fused step RETURNS uvr in its packed output
 
         # without a baseline there is no disparity gate: stereo then takes
-        # the two-program flow, as in the JAX package
-        if self._fused and (bank_right is None or self.camera.bf > 0):
+        # the two-program flow, as in the JAX package; so does a frame of
+        # local-map tracking (its init attempts stay fused)
+        if self._fused and not self.cfg.local_map_tracking.enabled and (bank_right is None or self.camera.bf > 0):
             num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank, bank_right)
             if num_match < min_match:
                 promoted = self._promote_last_frame(timestamp)
@@ -381,6 +401,10 @@ class Tracker:
 
         if num_inliers < min_match:
             return self._handle_lost(bank, timestamp, frame_id, depth_lookup, uvr=uvr)
+
+        if self.cfg.local_map_tracking.enabled:
+            with self.timer.span("local_map"):
+                pose, frame_track, num_inliers = self._track_local_map(bank, pose, frame_track, num_inliers)
 
         return self._finish_tracked_frame(bank, uvr, pose, frame_track, num_inliers, timestamp, frame_id, ref_frame_id,
                                           depth_lookup)
@@ -425,7 +449,50 @@ class Tracker:
         raise NotImplementedError("Tracker.process_chunk: chunked processing is not ported yet")
 
     def adopt_map(self) -> None:
-        raise NotImplementedError("Tracker.adopt_map: map adoption is not ported yet")
+        """Enter localization mode against the backend's current map
+        (typically one loaded from a snapshot): the tracker starts
+        initialized with the newest stored keyframe as its reference, its
+        feature bank rebuilt from the store's descriptor banks, and
+        relocalization pre-armed, so the first frame either tracks against
+        that keyframe (resume) or re-anchors anywhere in the map through
+        ``Backend.relocalize``."""
+        st = self.backend.store
+        slots = st.keyframe_slots()
+        if len(slots) == 0:
+            raise ValueError("adopt_map: the map has no keyframes")
+        newest = int(slots[np.argmax(st.kf_frame_id[slots])])
+        bank_np = st.kf_desc.get(newest)
+        if bank_np is None:
+            raise ValueError("adopt_map: map was stored without descriptor banks")
+        desc = bank_np.astype(np.float32)
+        valid = np.linalg.norm(desc, axis=1) > 0.5  # unit rows = real features
+        # the persisted detection scores where there are some: SuperGlue's
+        # keypoint encoder saw small probabilities in training, so all-ones
+        # would be out of distribution
+        sc = st.kf_scores.get(newest)
+        scores = (sc.astype(np.float32) * valid) if sc is not None else valid.astype(np.float32)
+        self._ref_bank = FeatureBank(
+            scores=self._upload(scores),
+            kpts=self._upload(st.kf_kpts[newest, :, :2].astype(np.float32)),
+            desc=self._upload(desc),
+            valid=self._upload(valid),
+        )
+        self._ref_slot = newest
+        self._ref_frame_id = int(st.kf_frame_id[newest])
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = st.kf_R[newest]
+        pose[:3, 3] = st.kf_t[newest]
+        self._last_keyframe_pose = pose
+        self._last_keyframe_frame_id = self._ref_frame_id
+        self._last_keyframe_time = float(st.kf_timestamp[newest])
+        self._last_pose = pose.copy()
+        self._last_track_well = False
+        # new frame ids must not collide with the stored sessions'
+        self._frame_counter = int(st.kf_frame_id[slots].max()) + 1
+        # pre-arm relocalization: a view that cannot be tracked against the
+        # newest keyframe re-anchors on the FIRST lost frame
+        self._lost_count = max(0, self.cfg.backend.reloc_after_failures - 1)
+        self._initialized = True
 
     def _mono_uvr(self, bank) -> np.ndarray:
         """(K, 3) per-feature [u, v, -1] on the host."""
@@ -702,6 +769,62 @@ class Tracker:
             track_ok[:] = False
         frame_track = np.where(track_ok, mp_of_slot, -1).astype(np.int32)
         return n_inl, pose, frame_track
+
+    def _track_local_map(self, bank, pose, frame_track, num_inliers):
+        """Associate the covisibility window's map points with this frame by
+        projection and refine the pose on the expanded set; the new pose is
+        kept only when the inliers grow, and the new associations fill the
+        frame's track where it has none. One packed upload, one packed
+        readback."""
+        st = self.backend.store
+        if st.mp_desc is None or self._ref_slot is None:
+            return pose, frame_track, num_inliers
+        window = st.window_frames(self._ref_slot, self.cfg.backend.window_opt_frames)
+        tracks = st.kf_track[window]
+        mp_ids = np.unique(tracks[tracks >= 0])
+        mp_ids = mp_ids[st.mp_good[mp_ids] & ~st.mp_bad[mp_ids]]
+        cap = bank.capacity
+        if len(mp_ids) == 0:
+            return pose, frame_track, num_inliers
+        mp_ids = mp_ids[:cap]
+        D = st.cfg.descriptor_dim
+        n = len(mp_ids)
+        # [R_cw (9) | t_cw (3) | pos (3 cap) | desc (D cap) | valid (cap)]
+        packed = np.zeros(12 + cap * (4 + D), np.float32)
+        R_cw = pose[:3, :3].T
+        packed[0:9] = R_cw.reshape(-1)
+        packed[9:12] = -R_cw @ pose[:3, 3]
+        o = 12
+        packed[o : o + 3 * n] = st.mp_pos[mp_ids].reshape(-1)
+        o += 3 * cap
+        packed[o : o + D * n] = st.mp_desc[mp_ids].astype(np.float32).reshape(-1)
+        o += D * cap
+        packed[o : o + n] = 1.0
+        flat = self._upload(packed)
+        matches, res = self._local_map_kernel(
+            flat[0:9].reshape(3, 3), flat[9:12], flat[12 : 12 + 3 * cap].reshape(cap, 3),
+            flat[12 + 3 * cap : o].reshape(cap, D), flat[o:] > 0.5, bank,
+        )
+        out = torch.cat([
+            res.n_inliers.to(torch.float32)[None], res.R_cw.reshape(-1), res.t_cw,
+            matches.feat_idx.to(torch.float32), (matches.valid & res.inliers).to(torch.float32),
+        ]).cpu().numpy()
+        n_inl = int(out[0])
+        if n_inl <= num_inliers:
+            return pose, frame_track, num_inliers
+        R_cw2, t_cw2 = out[1:10].reshape(3, 3), out[10:13]
+        new_pose = np.eye(4, dtype=np.float32)
+        new_pose[:3, :3] = R_cw2.T
+        new_pose[:3, 3] = -R_cw2.T @ t_cw2
+        # extend the frame's track table with the new associations
+        feat_idx = out[13 : 13 + cap].astype(np.int32)
+        ok = out[13 + cap :] > 0.5
+        new_track = frame_track.copy()
+        sel = np.nonzero(ok[:n])[0]
+        slots = feat_idx[sel]
+        fresh = new_track[slots] < 0
+        new_track[slots[fresh]] = mp_ids[sel[fresh]]
+        return new_pose, new_track, n_inl
 
     def fused_snapshot(self) -> np.ndarray:
         """(K, 6) f32 host-side input of the fused frame step: candidate

@@ -2,7 +2,8 @@
 covisibility.
 
 Own copy of ``ur_mvo_tpu.runtime.map_store`` (numpy on the host, as
-there), without the snapshot save/load. An array-based redesign of the
+there), snapshots included: an npz either package writes loads in the
+other (same field names). An array-based redesign of the
 reference's pointer-graph map: keyframes live in slots of dense numpy arrays, mappoints in a flat
 table, the observer relation is a dense (MP, KF) slot matrix, and
 covisibility is a dense integer weight matrix — so window selection,
@@ -430,3 +431,98 @@ class MapStore:
         self.remove_observations(kfs, np.full(len(kfs), mp))
         self.mp_bad[mp] = True
         self.mp_good[mp] = False
+
+    # -- checkpoint / resume -------------------------------------------------
+    # Snapshots enable resume (UR_MVO.load_map_snapshot -> Tracker.adopt_map)
+    # and offline BA.
+
+    _SNAPSHOT_FIELDS = (
+        "kf_valid", "kf_frame_id", "kf_timestamp", "kf_R", "kf_t",
+        "kf_kpts", "kf_track", "mp_alloc", "mp_good", "mp_bad", "mp_pos",
+        "mp_obs_count", "obs_slot", "covis",
+        "kf_snap_pos", "kf_snap_ok", "kf_snap_R", "kf_snap_t",
+    )  # mp_desc handled separately (optional)
+
+    def save_snapshot(self, path: str) -> None:
+        state = {f: getattr(self, f) for f in self._SNAPSHOT_FIELDS}
+        state["_next_kf"] = np.asarray(self._next_kf)
+        state["_next_mp"] = np.asarray(self._next_mp)
+        state["_free_kf"] = np.asarray(self._free_kf, np.int64)
+        state["_free_mp"] = np.asarray(self._free_mp, np.int64)
+        state["_frame_ids"] = np.asarray(list(self.frame_id_to_slot.keys()), np.int64)
+        state["_frame_slots"] = np.asarray(list(self.frame_id_to_slot.values()), np.int64)
+        if self.mp_desc is not None:
+            state["mp_desc"] = self.mp_desc
+            if self.kf_desc:
+                state["kf_desc_slots"] = np.asarray(sorted(self.kf_desc), np.int64)
+                state["kf_desc_banks"] = np.stack(
+                    [self.kf_desc[int(s)] for s in sorted(self.kf_desc)]
+                )
+            if self.kf_scores:
+                state["kf_score_slots"] = np.asarray(sorted(self.kf_scores), np.int64)
+                state["kf_score_banks"] = np.stack(
+                    [self.kf_scores[int(s)] for s in sorted(self.kf_scores)]
+                )
+        state["kf_gdesc"] = self.kf_gdesc
+        if self.loop_edges:
+            state["loop_i"] = np.asarray([e[0] for e in self.loop_edges], np.int32)
+            state["loop_j"] = np.asarray([e[1] for e in self.loop_edges], np.int32)
+            state["loop_R"] = np.stack([e[2] for e in self.loop_edges]).astype(np.float32)
+            state["loop_t"] = np.stack([e[3] for e in self.loop_edges]).astype(np.float32)
+            state["loop_w"] = np.asarray([e[4] for e in self.loop_edges], np.float32)
+            state["loop_s"] = np.asarray(
+                [e[5] if len(e) > 5 else 1.0 for e in self.loop_edges], np.float32)
+        np.savez_compressed(path, **state)
+
+    @classmethod
+    def load_snapshot(cls, path: str, cfg: "StoreConfig") -> "MapStore":
+        data = np.load(path if path.endswith(".npz") else path + ".npz")
+        store = cls(cfg)
+        rebuild_snaps = False
+        for f in cls._SNAPSHOT_FIELDS:
+            if f not in data:
+                if f.startswith("kf_snap_"):
+                    # an older snapshot without them: rebuild from the
+                    # loaded map below (the loaded state IS self-consistent
+                    # at load time, which is all detect_loop needs)
+                    rebuild_snaps = True
+                    continue
+                raise ValueError(f"snapshot missing field {f}")
+            saved = data[f]
+            if getattr(store, f).shape != saved.shape:
+                raise ValueError(f"snapshot field {f} shape {saved.shape} != store {getattr(store, f).shape}")
+            setattr(store, f, saved.copy())
+        if store.mp_desc is not None and "mp_desc" in data:
+            store.mp_desc = data["mp_desc"].copy()
+            if "kf_desc_slots" in data:
+                store.kf_desc = {
+                    int(s): bank.copy()
+                    for s, bank in zip(data["kf_desc_slots"], data["kf_desc_banks"])
+                }
+            if "kf_score_slots" in data:
+                store.kf_scores = {
+                    int(s): bank.copy()
+                    for s, bank in zip(data["kf_score_slots"], data["kf_score_banks"])
+                }
+        store._next_kf = int(data["_next_kf"])
+        store._next_mp = int(data["_next_mp"])
+        if "_free_kf" in data:
+            store._free_kf = data["_free_kf"].astype(int).tolist()
+            store._free_mp = data["_free_mp"].astype(int).tolist()
+        store.frame_id_to_slot = dict(zip(data["_frame_ids"].tolist(), data["_frame_slots"].tolist()))
+        if "kf_gdesc" in data and data["kf_gdesc"].shape == store.kf_gdesc.shape:
+            store.kf_gdesc = data["kf_gdesc"].copy()
+        if "loop_i" in data:
+            loop_s = (data["loop_s"] if "loop_s" in data
+                      else np.ones(len(data["loop_i"]), np.float32))
+            store.loop_edges = [
+                (int(i), int(j), R.copy(), t.copy(), float(w), float(s))
+                for i, j, R, t, w, s in zip(
+                    data["loop_i"], data["loop_j"], data["loop_R"], data["loop_t"],
+                    data["loop_w"], loop_s
+                )
+            ]
+        if rebuild_snaps:
+            for s in store.keyframe_slots():
+                store.snapshot_keyframe_geometry(int(s))
+        return store
