@@ -2,9 +2,9 @@
 """Drive the PyTorch/H100 port (``ur_mvo_tpu_torch``) on one card: its
 kernels, its front end, the whole monocular engine and its long,
 loop-bearing protocol with global optimization, the stereo and RGB-D
-engines with the hybrid matcher, and the tracking and map extras
+engines with the hybrid matcher, the tracking and map extras
 (local-map tracking, resolution buckets, sub-pixel peaks, patch
-descriptors, map snapshots).
+descriptors, map snapshots) and several sequences stepped lock-step.
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -68,8 +68,11 @@ layers, bf16 compute. Phases, each printing one JSON line:
    F-RANSAC), and of the match's parts (SuperGlue scores, RANSAC), on the
    kernel path and on the plain path; then the device's busy and idle share
    of a frame step (extract + match) and its largest kernels, from
-   ``torch.profiler``, and the kernels that run right before a match's
-   attention kernels (no mask cast may be among them);
+   ``torch.profiler``; every attention call of a match must get the bool
+   mask with no bool -> uint8 conversion dispatched since the call before
+   it (``attention_mask_witness``, which sees every aten op; a control that
+   casts before each call must show), and the kernels the profiler records
+   right before a match's attention kernels are reported beside it;
 7. ba: one window-sized bundle adjustment on the card against the same
    problem on the CPU (to a tolerance: ``index_add_`` adds with atomics);
 8. engine: ``UR_MVO(cfg, device="cuda")`` with the production mono
@@ -179,14 +182,44 @@ layers, bf16 compute. Phases, each printing one JSON line:
    emitted with local-map tracking, keyframe ATE 0.348 over the two
    sessions), so those two are held to their health and print their ATE
    beside the JAX package's.
+14. multi_seq: ``parallel/multi_seq.MultiSequenceVO`` (S sequences stepped
+   lock-step, the device work of a frame batched across them). First each
+   kernel at the lock-step batch against its single stream's launch, item
+   by item bit for bit, and within phase 3's limits of its plain version:
+   the stages at B = 3 (frame 0 of seeds 11-13) against B = 1, attention at
+   B = 6 (three pairs) against B = 2, the transport of three lanes against
+   each lane's call, pose GN at B = 6 (three lanes whose problems skip
+   rounds differently) against B = 2. Then S = 3 lanes, the ``mono/3d``
+   scenes of seeds 11-13 (24 frames each) with ``production_engine()``'s
+   configuration under deterministic algorithms, launch counts reset just
+   before: every lane that initialises held to phase 8's health limits,
+   where a frame lost while the lane's reference keyframe held fewer than
+   6 triangulated points (a collapsed map, which the JAX package's
+   MultiSequenceVO shows too: ROADMAP C11) is counted apart, and a lane
+   that never initialises reported; each lane's keyframe ATE and per-frame
+   trace beside the single stream's (phase 8's runs) and the JAX package's
+   (``MULTI_SEQ_JAX``); per lock-step frame one stage-kernel launch a
+   stage, one attention launch a GNN layer, one Sinkhorn launch a lane
+   (each again for every call a lane's view made at S = 1) and exactly one
+   pose-GN launch for the batch where a lane tracks, plus one for every
+   pose solve of the lanes' own flows (``Tracker.pose_calls``), with at
+   least 0.3 of the tracking frames on which every tracking lane adopted
+   its batched row. The same lanes rotated in the batch: each lane's trace
+   and keyframe poses equal to its own above, and every batched track row
+   equal bit for bit to the single-lane core's on its lane's inputs and
+   draws. The same lanes through the plain
+   versions (health printed, no kernel launched). Host ms a lock-step frame
+   and frames a second over the lanes at S = 1 (seed 13), 3 and 6 (seeds
+   11-16, 8 frames), and the device's busy and idle share of four profiled
+   lock-step frames at S = 3.
 
 Then each phase's seconds, the ``kernels`` line (launches from the engine
 run; the sorted reduction's from the long map's ``global_optimize``, the
 unsorted one's from the ``"pallas"`` global BA; times at the global
 shape; ``launches_by_path``: each path's own counts, ``mono/long`` with the
-long map's ``global_optimize``, and phase 13's paths, ``local_map_step``
-the local-map steps' own ``pose_gn`` launches), the ``nvidia-smi``
-name/power-limit line,
+long map's ``global_optimize``, phase 13's paths, ``local_map_step``
+the local-map steps' own ``pose_gn`` launches, and phase 14's
+``multi_seq``), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
 ``{"phase": ..., "failed": ...}`` line and the run goes on to the next
 phase; at the end any failure makes the exit code 1 and leaves the
@@ -213,7 +246,10 @@ call at B = 2, N = 1024 (all three run in an older checkout too: copy this
 file into one and run it there to take that kernel's digest).
 ``--only-ba-kernels`` builds and checks the two point-reduce kernels;
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
-``--only-extras`` builds and runs phase 13 alone.
+``--only-extras`` builds and runs phase 13 alone; ``--only-multi-seq``
+phase 14; ``--multi-seq-witness`` phase 14's lanes under the variants of
+``multi_seq_witness`` (float32, other samplers, each lane alone, other
+scenes), a per-frame trace a lane.
 ``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
 runs one metric protocol on those scenes through phase 10's code, printing
 each run's ATE (the spread behind its 3-seed gate) and the gate over all of
@@ -363,6 +399,28 @@ LOCAL_MAP_JAX = {
 }
 SNAPSHOT_JAX = {"seed": 11, "keyframes_a": 5, "keyframes_after_b": 8, "keyframe_ate_both_sessions": 0.3480,
                 "frames_lost_b": 0, "relocalizations_b": 0}
+# phase 14: the frames of the S = 6 timing run (seeds 11-16); the least
+# share of the S = 3 run's tracking frames on which every tracking lane
+# adopts its batched row (7 of 20 on this slice's first card runs: a lane
+# whose map collapsed falls back on every frame, ROADMAP C11); and the
+# JAX package's MultiSequenceVO on the same lanes, on the CPU
+# (scripts/metric_gauge.py --reference multi_seq 11,12,13), printed beside
+# the port's lanes. Its lanes 11 and 12 never initialise in 24 frames (its
+# batched match has no init-only NN floor), so it has no 3-lane mean: the
+# lanes are held to phase 8's health only (ROADMAP C11)
+MULTI_SEQ_S6_FRAMES = 8
+MULTI_SEQ_MIN_CLEAN_SHARE = 0.3
+# fewer triangulated points than the PnP minimum (DLT, 6) in a lane's
+# reference keyframe: a collapsed map (multi_seq_health)
+MULTI_SEQ_COLLAPSED = 6
+MULTI_SEQ_JAX = {
+    11: {"initialised_at_frame": None, "keyframes": 0, "keyframe_ate": None, "frames_lost": 0},
+    12: {"initialised_at_frame": None, "keyframes": 0, "keyframe_ate": None, "frames_lost": 0},
+    13: {"initialised_at_frame": 3, "keyframes": 6, "keyframe_ate": 0.1059, "keyframe_poses_returned": 1,
+         "frames_lost": 0},
+}
+# phase 8's runs, for phase 14's comparison
+SINGLE_STREAM_ROWS: list = []
 
 
 
@@ -438,6 +496,50 @@ def device_kernels(fn, opener: bool = False):
     records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     names = [e.name for e in sorted(records, key=lambda e: e.time_range.start)]
     return names[1:] if opener and names and "Fill" in names[0] else names
+
+
+def attention_mask_witness(fn, control: bool = False):
+    """The mask dtype each call of the extension's attention binding gets
+    while ``fn`` runs, and for each call the bool -> uint8 conversions
+    dispatched since the previous one (its own included), from a
+    ``TorchDispatchMode`` that sees every aten op of the thread, those the
+    binding would issue too. Unlike the profiler, it drops nothing.
+    ``control`` casts the mask to uint8 right before each call (the wrapper
+    as it was before the bool mask), which must show in both readings."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    ext = cuda_ext.extension()
+    launch = ext.attention
+    dtypes, casts, pending = [], [], [0]
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {t.dtype for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)}
+            outs = {t.dtype for t in tree_leaves(out) if isinstance(t, torch.Tensor)}
+            pending[0] += torch.bool in ins and torch.uint8 in outs
+            return out
+
+    def logged(q, k, v, kv_valid, *rest):
+        if control:
+            kv_valid = kv_valid.to(torch.uint8)
+        dtypes.append(str(kv_valid.dtype))
+        out = launch(q, k, v, kv_valid, *rest)
+        casts.append(pending[0])
+        pending[0] = 0
+        return out
+
+    ext.attention = logged
+    try:
+        with Log():
+            fn()
+    finally:
+        ext.attention = launch
+    return dtypes, casts
 
 
 def device_ms(fn, names=None, calls: int = 20, exclude=()):
@@ -2241,23 +2343,33 @@ def frontend_phases(images, smi):
               "top_kernels": [[k[:70], v / 1e3 / steps] for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6]],
               "top_host_ops": [[k[:50], v / 1e3 / steps] for k, v in sorted(host.items(), key=lambda kv: -kv[1])[:8]]})
 
-    # the device kernel before each attention launch of three matches: the
-    # wrapper passes the bool mask as it is, so the kernel of a bool -> uint8
-    # cast (profiled on its own here) must precede none (the profiler may
-    # drop records of a short window, so the counts are of what it kept)
-    cast = set(device_kernels(lambda: [banks[0].valid.to(torch.uint8) for _ in range(20)]))
+    # the wrapper passes the bool mask as it is: every attention call of a
+    # match must get a bool mask with no bool -> uint8 conversion dispatched
+    # since the call before it (attention_mask_witness), and the control,
+    # which casts before each call, must show in both readings
     cuda_ext.LAUNCHES.clear()
+    dtypes, casts = attention_mask_witness(lambda: ext.match(banks[0], banks[1]))
+    n_calls = cuda_ext.LAUNCHES["attention"]
+    c_dtypes, c_casts = attention_mask_witness(lambda: ext.match(banks[0], banks[1]), control=True)
+    # the device kernel before each attention launch of three matches, from
+    # the profiler, beside the kernel of a bool -> uint8 cast profiled on its
+    # own (reported, not gated: the profiler may drop or misplace records)
+    cast = set(device_kernels(lambda: [banks[0].valid.to(torch.uint8) for _ in range(20)]))
     names = device_kernels(lambda: [ext.match(banks[0], banks[1]) for _ in range(3)])
-    n_calls = cuda_ext.LAUNCHES["attention"] // 2  # the warm-up matches and the profiled ones
     n_kernels = sum("attention_mma_kernel" in n for n in names)
     before = [names[i - 1] for i, n in enumerate(names) if "attention_mma_kernel" in n and i > 0]
-    casts = sum(n in cast for n in before)
     emit({"phase": "device_share", "what": "match_attention", "attention_calls": n_calls,
-          "attention_kernels": n_kernels, "cast_kernel": [c[:70] for c in cast],
-          "before_attention": {k[:70]: before.count(k) for k in set(before)}, "casts_before_attention": casts})
-    if not cast or casts or not n_kernels:
-        raise AssertionError(f"a match's attention kernels: {n_kernels} of {n_calls} calls recorded, cast kernel "
-                             f"{cast}, {casts} casts right before one")
+          "mask_dtypes": {d: dtypes.count(d) for d in set(dtypes)}, "casts_before_attention": sum(casts),
+          "control_mask_dtypes": {d: c_dtypes.count(d) for d in set(c_dtypes)},
+          "control_calls_with_a_cast": sum(c > 0 for c in c_casts),
+          "profiler": {"attention_kernels_of_3_matches": n_kernels, "cast_kernel": [c[:70] for c in cast],
+                       "before_attention": {k[:70]: before.count(k) for k in set(before)},
+                       "casts_before_attention": sum(n in cast for n in before)}})
+    if not n_calls or len(dtypes) != n_calls or set(dtypes) != {"torch.bool"} or any(casts):
+        raise AssertionError(f"a match's attention calls: {n_calls} launched, {len(dtypes)} seen, mask dtypes "
+                             f"{set(dtypes)}, bool -> uint8 conversions before each {casts}")
+    if len(c_dtypes) != n_calls or set(c_dtypes) != {"torch.uint8"} or not all(c_casts):
+        raise AssertionError(f"the mask witness misses a cast before each call: {c_dtypes} {c_casts}")
     return launches
 
 
@@ -2508,6 +2620,7 @@ def engine_phase(smi):
     launches = dict(cuda_ext.LAUNCHES)
     gn_steps, gn_problems = cuda_pose.steps_run()
     rows = [r[0] for r in runs]
+    SINGLE_STREAM_ROWS[:] = rows
     tracked = vo.tracker.timer.summary().get("track", {}).get("count", 0)
     emit({"phase": "engine", "frames": ENGINE_FRAMES, "seeds": list(ENGINE_SEEDS), "runs": rows,
           "tracked_frames": tracked, "max_ate": MAX_ATE, "launches": launches,
@@ -3175,6 +3288,537 @@ def extras_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: multi-sequence concurrent VO (parallel/multi_seq.MultiSequenceVO)
+# ---------------------------------------------------------------------------
+
+def multi_seq_batch_invariance(smi):
+    """Each kernel at the batch the lock-step frame gives it, item by item
+    against its launch at the single stream's batch, bit for bit, and
+    against its plain version within phase 3's limits: the three stages on
+    frame 0 of the ``mono/3d`` scenes of seeds 11-13 at B = 3 against B = 1;
+    attention at B = 6 (three pairs, different valid counts a bank) against
+    each pair's B = 2 launch; the transport of three lanes through the
+    batched wrapper against each lane's call; pose GN at B = 6 (three lanes'
+    two problems at N = 1024, one lane's problem without outliers, so that
+    the lanes skip rounds differently) against each lane's B = 2 launch."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_conv, cuda_ext, cuda_kernels
+    from ur_mvo_tpu_torch.ops.pose_opt import optimize_pose, optimize_pose_plain
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    dev = torch.device("cuda")
+    ext = cuda_ext.extension()
+    row, bad = {"phase": "multi_seq", "check": "batch_invariance", "card": smi}, []
+
+    # --- the stage kernels: B = 3 against B = 1 --------------------------
+    frames = np.stack([render_sequence(1, H, W, FX, seed=s, n_planes=3, z_background=6.0)[0][0] for s in ENGINE_SEEDS])
+    x = (torch.from_numpy(frames).to(dev).float() / 255.0).to(torch.bfloat16)[..., None]
+    singles = [x[i : i + 1] for i in range(len(ENGINE_SEEDS))]
+    sp = shipped_superpoint()
+    stages = []
+    for name in STAGE_CONVS:
+        ca, cb = stage_convs(sp, name)
+        args = (ca.weight, ca.bias, cb.weight, cb.bias)
+        packed = cuda_conv.pack_stage(*args, x.dtype)
+        ref = cuda_conv.stage_conv_plain(x, *args)
+        out = cuda_conv.stage_conv(x, *args, packed=packed)
+        singles = [cuda_conv.stage_conv(s, *args, packed=packed) for s in singles]
+        B, Hs, Ws, Cin = x.shape
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2.0**-6 * ref.float().abs().max().item()
+        same = [bool(torch.equal(out[i : i + 1], s)) for i, s in enumerate(singles)]
+        info = ext.stage_conv_info(Cin, ca.weight.shape[0], cb.weight.shape[0], B, Hs, Ws)
+        stages.append({"stage": name, "B": B, "items_equal_B1": same, "max_abs_err": err, "tol": tol,
+                       "blocks": info["blocks"], "tiles": info["tiles"]})
+        if not (all(same) and err <= tol):
+            bad.append(f"{name} at B = {B}: items equal to B = 1 {same}, max |err| {err} (<= {tol})")
+        x, singles = out, [out[i : i + 1] for i in range(B)]  # the next stage reads the batch's output
+    row["stages"] = stages
+
+    # --- attention: B = 6 against each pair's B = 2 -----------------------
+    rng = np.random.RandomState(14)
+    counts = (1000, 937, 990, 1000, 870, 955)
+    q, k, v = (torch.from_numpy(rng.standard_normal((6, 1024, 4, 64)).astype(np.float32)).to(dev).to(torch.bfloat16)
+               for _ in range(3))
+    valid = torch.arange(1024, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
+    out = cuda_kernels.attention(q, k, v, valid)
+    ref = cuda_kernels.attention_plain(q, k, v, valid)
+    pairs = [slice(2 * i, 2 * i + 2) for i in range(3)]
+    same = [bool(torch.equal(out[p], cuda_kernels.attention(q[p], k[p], v[p], valid[p]))) for p in pairs]
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 2.0**-6 * ref.float().abs().max().item()
+    occ = ext.attention_occupancy(1024, False)
+    row["attention"] = {"B": 6, "valid": list(counts), "pairs_equal_B2": same, "max_abs_err": err, "tol": tol,
+                        "blocks": 6 * 4 * 1024 // 64, **occ,
+                        "ms_B6": device_ms(lambda: cuda_kernels.attention(q, k, v, valid), ("attention_mma_kernel",))[0],
+                        "ms_B2": device_ms(lambda: cuda_kernels.attention(q[:2], k[:2], v[:2], valid[:2]),
+                                           ("attention_mma_kernel",))[0]}
+    if not (all(same) and err <= tol):
+        bad.append(f"attention at B = 6: pairs equal to B = 2 {same}, max |err| {err} (<= {tol})")
+
+    # --- Sinkhorn: three lanes through the batched transport ---------------
+    lanes = [transport_inputs(n0, n1) for n0, n1 in ((1000, 1000), (950, 1000), (1000, 880))]
+    scores = torch.stack([t[0] for t in lanes])
+    v0, v1 = torch.stack([t[1] for t in lanes]), torch.stack([t[2] for t in lanes])
+    alpha = lanes[0][3]
+    cuda_ext.LAUNCHES.clear()
+    Z = cuda_kernels.log_optimal_transport_kernel(scores, v0, v1, alpha, 20)
+    launches = cuda_ext.LAUNCHES.get("sinkhorn", 0)
+    same = [bool(torch.equal(Z[i], cuda_kernels.log_optimal_transport_kernel(*lanes[i][:3], alpha, 20)))
+            for i in range(3)]
+    Zp = cuda_kernels.log_optimal_transport_kernel(scores, v0, v1, alpha, 20, plain=True)
+    err = max(((Z[i] - Zp[i]).abs() * (Zp[i] > -1e8)).max().item() for i in range(3))
+    row["sinkhorn"] = {"lanes": 3, "launches": launches, "lanes_equal_single": same, "max_abs_err": err, "tol": 1e-4}
+    if not (all(same) and err <= 1e-4 and launches == 3):
+        bad.append(f"sinkhorn over 3 lanes: lanes equal to a single call {same}, {launches} launches, max |err| {err}")
+
+    # --- pose GN: B = 6 against each lane's B = 2 --------------------------
+    problems = [pose_problem(1024, False, seed=31), pose_problem(1024, False, seed=32, outliers=False),
+                pose_problem(1024, False, seed=33)]
+    R0, t0, obs, geom = pose_batch([p for p in problems for _ in range(2)], FRAME_STEP_STARTS * 3)
+    out = optimize_pose(R0, t0, obs, *geom)
+    ref_R, ref_t, ref_inl, steps = optimize_pose_plain(R0, t0, obs.X, obs.uv, obs.valid, *geom, full_schedule=True)
+    _, _, _, short_steps = optimize_pose_plain(R0, t0, obs.X, obs.uv, obs.valid, *geom)
+    same = []
+    for p in pairs:
+        two = optimize_pose(R0[p], t0[p], type(obs)(*(f[p] for f in obs)), *geom)
+        same.append(all(bool(torch.equal(a, b)) for a, b in zip(two, (out.R_cw[p], out.t_cw[p], out.inliers[p]))))
+    err_R = (out.R_cw - ref_R).abs().max().item()
+    err_t = (out.t_cw - ref_t).abs().max().item()
+    agree = (out.inliers == ref_inl).float().mean().item()
+    row["pose_gn"] = {"B": 6, "N": 1024, "lanes_equal_B2": same, "err_R": err_R, "err_t": err_t, "inlier_agree": agree,
+                      "steps_plain_shortcuts": short_steps.tolist(),
+                      "ms_B6": device_ms(lambda: optimize_pose(R0, t0, obs, *geom), ("pose_gn_kernel",))[0],
+                      "ms_B2": device_ms(lambda: optimize_pose(R0[:2], t0[:2], type(obs)(*(f[:2] for f in obs)), *geom),
+                                         ("pose_gn_kernel",))[0]}
+    if not (all(same) and err_R <= 2e-5 and err_t <= 2e-4 and agree >= 0.99):
+        bad.append(f"pose_gn at B = 6: lanes equal to B = 2 {same}, R {err_R} (<= 2e-5), t {err_t} (<= 2e-4), "
+                   f"inliers {agree} (>= 0.99)")
+    if len(set(tuple(short_steps[p].tolist()) for p in pairs)) < 2:
+        bad.append(f"pose_gn at B = 6: the lanes did not run different steps ({short_steps.tolist()})")
+    emit(row)
+    if bad:
+        raise AssertionError("multi_seq batch invariance: " + "; ".join(bad))
+
+
+def multi_seq_engine(S, kernels=True, compute_dtype=None, seed=None):
+    """``MultiSequenceVO`` with ``production_engine()``'s configuration;
+    ``compute_dtype`` and ``seed`` (``runtime.seed``: the lanes' and
+    trackers' samplers) replace the configuration's."""
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.config import Configs
+    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
+    from ur_mvo_tpu_torch.parallel.multi_seq import MultiSequenceVO
+
+    cfg = production_config(Configs, checkpoint_operating_point)
+    if compute_dtype is not None:
+        cfg.runtime.compute_dtype = compute_dtype
+    if seed is not None:
+        cfg.runtime.seed = seed
+    return MultiSequenceVO(cfg, make_pinhole(W, H, FX, FX, W / 2, H / 2), S, device="cuda", kernels=kernels)
+
+
+def multi_seq_lanes_at(msvo, slots):
+    """Give lane j of ``msvo`` the generator that lane ``slots[j]`` of a
+    MultiSequenceVO built with the same configuration draws from, so that a
+    scene draws the same sets in any slot and at any S."""
+    import torch
+
+    msvo.generators = [torch.Generator(device=msvo.device).manual_seed(msvo.cfg.runtime.seed + 1000 * (k + 1))
+                       for k in slots]
+    return msvo
+
+
+def multi_seq_trace(msvo):
+    """Wrap each lane's tracker so that every frame appends, per lane, what
+    the frame was: ``s`` the state it began in (``i`` initialising, ``t``
+    tracking), ``m`` the precomputed match's count, ``row`` the batched
+    track row's match and inlier counts, ``own`` the inlier count of the
+    lane's own two-program track (the fallback), ``cand`` the triangulated
+    candidates of the reference keyframe, ``ad`` adopted, ``lost``, ``kf``
+    a keyframe inserted, ``reloc``. Returns the per-lane lists."""
+    import numpy as np
+
+    logs = [[] for _ in msvo.trackers]
+    for t, log in zip(msvo.trackers, logs):
+        def process(bank, ts, _t=t, _log=log, _f=t.process, **k):
+            e = {"s": "t" if _t.initialized else "i"}
+            m, pt = k.get("precomputed_match"), k.get("precomputed_track")
+            if m is not None:
+                e["m"] = int(m.num_valid())
+            if pt is not None:
+                e["row"] = [int(pt[0]), int(pt[1])]
+            if _t.initialized and _t._ref_slot is not None:
+                e["cand"] = int((_t.fused_snapshot()[:, 3] > 1.5).sum())
+            lost, reloc = _t.frames_lost, _t.relocalizations
+            _log.append(e)
+            out = _f(bank, ts, **k)
+            e.update(ad=int(_t.adopted_track), lost=int(_t.frames_lost > lost), kf=int(out is not None),
+                     reloc=int(_t.relocalizations > reloc))
+            return out
+
+        def track_frame(*a, _f=t._track_frame, _log=log, **k):
+            out = _f(*a, **k)
+            _log[-1].setdefault("own", []).append(int(out[0]))
+            return out
+
+        t.process, t._track_frame = process, track_frame
+    return logs
+
+
+def multi_seq_row_check(msvo):
+    """Wrap ``msvo._track_batched`` so that every call also computes each
+    lane's row with the single-lane ``fused_track_core`` on that lane's
+    inputs and a copy of its generator taken just before the call, and
+    counts the lanes whose batched row differs from it in any bit (a lane
+    that reads another's matches, snapshot or draws, or a row written to
+    another lane's slot). Returns the tally, {"calls", "lanes", "unequal"}."""
+    import torch
+
+    from ur_mvo_tpu_torch.parallel.multi_seq import lane
+    from ur_mvo_tpu_torch.runtime.frontend import fused_track_core
+
+    tally = {"calls": 0, "lanes": 0, "unequal": []}
+    batched = msvo._track_batched
+    cam, topt, rt, kf = msvo.camera, msvo.cfg.tracking_optimization, msvo.cfg.runtime, msvo.cfg.keyframe
+
+    def checked(matches, banks, snapshots, generators=None, pnp_sets=None):
+        states = [g.get_state() for g in generators]
+        out = batched(matches, banks, snapshots, generators, pnp_sets)
+        for i, state in enumerate(states):
+            g = torch.Generator(device=msvo.device)
+            g.set_state(state)
+            kp = banks.kpts[i]
+            uvr = torch.cat([kp, -torch.ones((kp.shape[0], 1), dtype=torch.float32, device=kp.device)], dim=1)
+            one = fused_track_core(g, lane(matches, i), uvr, snapshots[i], msvo.K_mat, cam.fx, cam.fy, cam.cx,
+                                   cam.cy, cam.bf, topt.mono_point, topt.stereo_point, rt.pnp_ransac_iterations,
+                                   rt.pnp_reprojection_threshold, kf.min_num_match, 4.0 * kf.max_distance)
+            tally["lanes"] += 1
+            if not torch.equal(one, out[i]):
+                tally["unequal"].append([tally["calls"], i])
+        tally["calls"] += 1
+        return out
+
+    msvo._track_batched = checked
+    return tally
+
+
+def multi_seq_witness(smi):
+    """``--multi-seq-witness``: phase 14's S = 3 lanes (seeds 11-13, 24
+    frames, deterministic algorithms) in bf16 on the kernels as the phase
+    runs them, in float32 on the kernels and on the plain versions (the
+    JAX package's MultiSequenceVO computes in float32 whatever the
+    configuration says), in bf16 with two other ``runtime.seed`` (the
+    lanes' samplers), each lane alone at S = 1 in bf16 with its S = 3
+    lane's generator (its per-frame trace and keyframe poses beside its S =
+    3 lane's), and six other scenes (seeds 14-19) in bf16. A line a
+    run: each lane's health row and per-frame trace (``multi_seq_trace``)."""
+    import numpy as np
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    scenes = multi_seq_scenes(ENGINE_SEEDS)
+
+    def run(name, seeds, sc, slots=None, **kw):
+        vo = multi_seq_engine(len(seeds), **kw)
+        if slots is not None:
+            multi_seq_lanes_at(vo, slots)
+        logs = multi_seq_trace(vo)
+        rows, _, _ = multi_seq_run(vo, sc, seeds)
+        traj = vo.trajectories()
+        for r, log in zip(rows, logs):
+            r["trace"] = log
+        emit({"phase": "multi_seq", "check": "witness", "run": name, "seeds": list(seeds), "runs": rows,
+              "card": smi})
+        return rows, traj
+
+    base, base_traj = run("bf16", ENGINE_SEEDS, scenes)
+    run("float32", ENGINE_SEEDS, scenes, compute_dtype="float32")
+    run("float32_plain", ENGINE_SEEDS, scenes, compute_dtype="float32", kernels=False)
+    for seed in (1, 2):
+        run(f"bf16_runtime_seed_{seed}", ENGINE_SEEDS, scenes, seed=seed)
+    alone = []
+    for k, seed in enumerate(ENGINE_SEEDS):
+        rows, traj = run(f"bf16_alone_{seed}", (seed,), [scenes[k]], slots=[k])
+        same_trace = rows[0]["trace"] == base[k]["trace"]
+        same_poses = all(np.array_equal(a, b) for a, b in zip(traj[0], base_traj[k])) and \
+            len(traj[0][0]) == len(base_traj[k][0])
+        alone.append({"seed": seed, "trace_equal_S3": same_trace, "keyframes_equal_S3": same_poses})
+    emit({"phase": "multi_seq", "check": "witness_alone", "lanes": alone, "card": smi})
+    others = tuple(range(14, 20))
+    run("bf16_seeds_14_19", others, multi_seq_scenes(others))
+    torch.use_deterministic_algorithms(False)
+
+
+def multi_seq_scenes(seeds, n_frames=ENGINE_FRAMES):
+    """The ``mono/3d`` scenes (images, T_wc) of the seeds, cut to ``n_frames``."""
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    return [tuple(a[:n_frames] for a in render_sequence(ENGINE_FRAMES, H, W, FX, seed=s, n_planes=3,
+                                                          z_background=6.0)[:2]) for s in seeds]
+
+
+def multi_seq_run(msvo, scenes, seeds, per_frame_launches=False):
+    """Step the lanes lock-step through their scenes. Returns a row a lane
+    (phase 8's health fields and the keyframe ATE), the host ms of each
+    lock-step frame and, with ``per_frame_launches``, each frame's launch
+    counts beside what the frame did (lanes tracking, rows adopted, the
+    views' batched calls at S = 1, relocalizations)."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+
+    S, n = len(scenes), len(scenes[0][0])
+    per_frame, frames, returned, init_at = [], [], [0] * S, [None] * S
+    for i in range(n):
+        before = (dict(cuda_ext.LAUNCHES), dict(msvo.view_calls), sum(t.relocalizations for t in msvo.trackers),
+                  sum(t.frames_lost for t in msvo.trackers))
+        t0 = time.perf_counter()
+        out = msvo.process_batch(np.stack([sc[0][i] for sc in scenes]), [i / FPS] * S)
+        torch.cuda.synchronize()
+        per_frame.append(1e3 * (time.perf_counter() - t0))
+        for s, pose in enumerate(out):
+            returned[s] += pose is not None and bool(np.isfinite(pose).all())
+            if init_at[s] is None and msvo.trackers[s].initialized:
+                init_at[s] = i
+        if per_frame_launches:
+            frames.append({"frame": i, **msvo.last_frame,
+                           "launches": {k: v - before[0].get(k, 0) for k, v in cuda_ext.LAUNCHES.items()
+                                        if v != before[0].get(k, 0)},
+                           "view_calls": {k: v - before[1].get(k, 0) for k, v in msvo.view_calls.items()
+                                          if v != before[1].get(k, 0)},
+                           "relocalizations": sum(t.relocalizations for t in msvo.trackers) - before[2],
+                           "frames_lost": sum(t.frames_lost for t in msvo.trackers) - before[3]})
+    torch.cuda.synchronize()
+    rows = []
+    for s, (seed, (kts, kR, kt)) in enumerate(zip(seeds, msvo.trajectories())):
+        T_wc = scenes[s][1]
+        idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, len(T_wc) - 1)
+        tr = msvo.trackers[s]
+        rows.append({"seed": seed, "initialised_at_frame": init_at[s], "keyframes": len(kts),
+                     "keyframe_frame_ids": idx.tolist(), "frames_lost": tr.frames_lost,
+                     "relocalizations": tr.relocalizations, "keyframe_poses_returned": returned[s],
+                     "poses_finite": bool(np.isfinite(kR).all() and np.isfinite(kt).all()),
+                     "keyframe_ate": float(ate_rmse(np.asarray(kt), T_wc[idx][:, :3, 3], align=True, correct_scale=True))
+                     if len(kts) >= 3 else None})
+    return rows, per_frame, frames
+
+
+def multi_seq_health(rows, what):
+    """Phase 8's health limits, lane by lane, for every lane that
+    initialised (a lane that never did is reported beside them,
+    ``multi_seq_phase``). With a per-frame trace (``multi_seq_trace``), a
+    frame lost while the lane's reference keyframe held fewer than
+    ``MULTI_SEQ_COLLAPSED`` triangulated points is counted apart as lost to
+    a collapsed map, and only the other lost frames are held to the limit:
+    from such a reference no pose can be solved, and the JAX package's
+    MultiSequenceVO loses every frame after the same collapse (ROADMAP
+    C11)."""
+    bad = []
+    for r in rows:
+        where = f"multi_seq ({what}, seed {r['seed']})"
+        if r["initialised_at_frame"] is None:
+            continue
+        if "trace" in r:
+            r["frames_lost_collapsed"] = sum(e["lost"] and e.get("cand", 0) < MULTI_SEQ_COLLAPSED for e in r["trace"])
+        lost = r["frames_lost"] - r.get("frames_lost_collapsed", 0)
+        if r["keyframes"] < MIN_KEYFRAMES:
+            bad.append(f"{where}: {r['keyframes']} keyframes (>= {MIN_KEYFRAMES})")
+        elif lost > MAX_FRAMES_LOST:
+            bad.append(f"{where}: {lost} frames lost from a map it could track (<= {MAX_FRAMES_LOST})")
+        elif not r["poses_finite"]:
+            bad.append(f"{where}: a keyframe pose is not finite")
+    return bad
+
+
+def multi_seq_launch_check(frames, S, layers):
+    """Per lock-step frame: the stage kernels once a stage, attention once
+    a GNN layer, Sinkhorn once a lane, each again for every call a lane's
+    view made at S = 1; pose GN exactly once for the batched track where a
+    lane tracks, plus once for every ``optimize_pose`` call of the lanes'
+    own flows (``Tracker.pose_calls``: a lane whose tracker did not adopt
+    its row, a place verification). Returns the faults and the tracking
+    frames on which every tracking lane adopted its row."""
+    bad, clean = [], 0
+    for f in frames:
+        L, views = f["launches"], f["view_calls"]
+        want = {"stage1_conv": 1 + views.get("extract", 0), "stage_conv": 2 * (1 + views.get("extract", 0)),
+                "attention": layers * (1 + views.get("match", 0)), "sinkhorn": S + views.get("match", 0),
+                "pose_gn": (f["track_lanes"] > 0) + f["lane_pose_calls"]}
+        got = {k: L.get(k, 0) for k in want}
+        if got != want:
+            bad.append(f"frame {f['frame']}: launches {got}, expected {want}")
+        clean += f["track_lanes"] > 0 and f["adopted"] == f["track_lanes"]
+    return bad, clean
+
+
+def multi_seq_phase(smi):
+    """Phase 14: ``MultiSequenceVO`` on the card. The kernels' batch
+    invariance at the lock-step shapes; then S = 3 lanes (the ``mono/3d``
+    scenes of seeds 11-13, 24 frames each) under deterministic algorithms,
+    launch counts reset just before: every lane that initialises held to
+    phase 8's health (``multi_seq_health``), the lanes' keyframe ATEs
+    printed beside the single-stream engine's and the JAX package's
+    (``MULTI_SEQ_JAX``), the launches of every lock-step frame checked
+    (``multi_seq_launch_check``) and at least ``MULTI_SEQ_MIN_CLEAN_SHARE``
+    of the tracking frames with every tracking lane on its batched row;
+    the same lanes rotated in the batch, each lane's trace and keyframes
+    equal to its own and every batched track row equal to the single-lane
+    core's (``multi_seq_row_check``); the same lanes through the plain
+    versions; host ms a lock-step frame at S = 1, 3 and 6 and the device's
+    busy share of lock-step frames at S = 3. Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    failures = []
+    try:
+        multi_seq_batch_invariance(smi)
+    except AssertionError as e:
+        emit({"phase": "multi_seq", "check": "batch_invariance", "failed": str(e)})
+        failures.append("batch_invariance")
+
+    # --- the path: S = 3, checked ---------------------------------------
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    scenes = multi_seq_scenes(ENGINE_SEEDS)
+    msvo = multi_seq_engine(len(ENGINE_SEEDS))
+    layers = len(msvo.superglue.layers)
+    logs = multi_seq_trace(msvo)
+    cuda_ext.LAUNCHES.clear()
+    rows, _, frames = multi_seq_run(msvo, scenes, ENGINE_SEEDS, per_frame_launches=True)
+    launches = dict(cuda_ext.LAUNCHES)
+    traj = msvo.trajectories()
+    for r, log in zip(rows, logs):
+        r["trace"] = log
+    if not SINGLE_STREAM_ROWS:  # phase 8 did not run (--only-multi-seq): the single stream on the same seeds
+        one = production_engine()
+        SINGLE_STREAM_ROWS.extend(engine_run(one, s)[0] for s in ENGINE_SEEDS)
+        one.shutdown()
+    single = SINGLE_STREAM_ROWS
+    for r in rows:
+        one = next((x for x in single if x["seed"] == r["seed"]), {})
+        r["single_stream_keyframe_ate"] = one.get("keyframe_ate")
+        r["jax_multi_seq"] = MULTI_SEQ_JAX.get(r["seed"])
+    bad = multi_seq_health(rows, "kernels")
+    initialised = [r["seed"] for r in rows if r["initialised_at_frame"] is not None]
+    if not initialised:
+        bad.append("multi_seq: no lane initialised")
+    if not any(f["track_lanes"] for f in frames):
+        bad.append("multi_seq: no lane reached tracking: the batched track never ran")
+    kf_ates = [r["keyframe_ate"] for r in rows if r["keyframe_ate"] is not None]
+    launch_bad, clean = multi_seq_launch_check(frames, len(ENGINE_SEEDS), layers)
+    tracking = sum(1 for f in frames if f["track_lanes"])
+    missing = [k for k in ENGINE_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        bad.append(f"multi_seq: kernels of the path never launched: {missing}")
+    if clean < MULTI_SEQ_MIN_CLEAN_SHARE * tracking:
+        bad.append(f"multi_seq: {clean} of {tracking} tracking frames had every tracking lane on its batched row "
+                   f"(>= {MULTI_SEQ_MIN_CLEAN_SHARE} of them)")
+    emit({"phase": "multi_seq", "check": "lanes", "S": len(ENGINE_SEEDS), "frames": ENGINE_FRAMES, "runs": rows,
+          "mean_keyframe_ate_of_the_lanes_with_one": statistics.mean(kf_ates) if kf_ates else None,
+          "single_stream_mean_keyframe_ate": statistics.mean(
+              x["keyframe_ate"] for x in single if x.get("keyframe_ate") is not None),
+          "lanes_held_to_health": initialised,
+          "lanes_never_initialised": [r["seed"] for r in rows if r["initialised_at_frame"] is None],
+          "launches": launches, "gnn_layers": layers, "tracking_frames": tracking,
+          "frames_every_tracking_lane_adopted": clean, "min_share": MULTI_SEQ_MIN_CLEAN_SHARE,
+          "frames_with_fallbacks": [f for f in frames if f["track_lanes"] and f["adopted"] < f["track_lanes"]],
+          "launch_faults": launch_bad, "card": smi})
+    bad += launch_bad
+
+    # --- every lane its own: the same lanes rotated in the batch ----------
+    # each scene keeps its lane generator; every lane's per-frame trace and
+    # keyframe poses must equal its own in the run above bit for bit, and
+    # every batched track row the single-lane core's on its lane's inputs
+    rot = ENGINE_SEEDS[1:] + ENGINE_SEEDS[:1]
+    vo = multi_seq_lanes_at(multi_seq_engine(len(rot)), [ENGINE_SEEDS.index(s) for s in rot])
+    logs_r = multi_seq_trace(vo)
+    tally = multi_seq_row_check(vo)
+    multi_seq_run(vo, [scenes[ENGINE_SEEDS.index(s)] for s in rot], rot)
+    traj_r = vo.trajectories()
+    own = []
+    for j, seed in enumerate(rot):
+        k = ENGINE_SEEDS.index(seed)
+        own.append({"seed": seed, "slot": j, "slot_before": k, "trace_equal": logs_r[j] == logs[k],
+                    "keyframes_equal": len(traj_r[j][0]) == len(traj[k][0]) and all(
+                        np.array_equal(a, b) for a, b in zip(traj_r[j], traj[k]))})
+    emit({"phase": "multi_seq", "check": "lanes_rotated", "lanes": own, "track_calls": tally["calls"],
+          "rows_checked": tally["lanes"], "rows_unequal_single_lane": tally["unequal"], "card": smi})
+    if not all(o["trace_equal"] and o["keyframes_equal"] for o in own):
+        bad.append(f"multi_seq: a lane moved with its slot in the batch: {own}")
+    if tally["unequal"] or not tally["calls"]:
+        bad.append(f"multi_seq: batched track rows unequal to the single-lane core's "
+                   f"([call, lane]): {tally['unequal']} of {tally['lanes']}")
+    del vo
+    if bad:
+        emit({"phase": "multi_seq", "check": "lanes", "failed": bad})
+        failures.append("lanes")
+    torch.use_deterministic_algorithms(False)
+
+    # --- the plain versions ----------------------------------------------
+    plain = multi_seq_engine(len(ENGINE_SEEDS), kernels=False)
+    plain_logs = multi_seq_trace(plain)
+    cuda_ext.LAUNCHES.clear()
+    plain_rows, plain_ms, _ = multi_seq_run(plain, scenes, ENGINE_SEEDS)
+    plain_launches = dict(cuda_ext.LAUNCHES)
+    for r, log in zip(plain_rows, plain_logs):
+        r["trace"] = log
+    emit({"phase": "multi_seq", "check": "plain", "runs": plain_rows, "health_faults": multi_seq_health(plain_rows, "plain"),
+          "kernel_launches": plain_launches, "ms_per_frame_median": statistics.median(plain_ms)})
+    if plain_launches:
+        failures.append("plain")
+        emit({"phase": "multi_seq", "check": "plain", "failed": f"kernels=False launched kernels: {plain_launches}"})
+    del plain
+
+    # --- times: S = 1, 3, 6, as a user runs it ----------------------------
+    times = {}
+    # S = 1 on seed 13, whose lane tracks: the lane of seed 11 never
+    # initialises in this MultiSequenceVO (nor in the JAX package's)
+    for seeds, n in (((13,), ENGINE_FRAMES), (ENGINE_SEEDS, ENGINE_FRAMES), (tuple(range(11, 17)), MULTI_SEQ_S6_FRAMES)):
+        S = len(seeds)
+        sc = [scenes[ENGINE_SEEDS.index(s)] for s in seeds] if set(seeds) <= set(ENGINE_SEEDS) \
+            else multi_seq_scenes(seeds, n)
+        vo = multi_seq_engine(S)
+        vo.timer.reset()
+        trows, ms, _ = multi_seq_run(vo, sc, seeds)
+        steady = ms[max((r["initialised_at_frame"] or 0) for r in trows) + 1:] or ms
+        times[f"S={S}"] = {"frames": n, "seeds": list(seeds), "host_ms_median": statistics.median(ms),
+                           "host_ms_median_all_tracking": statistics.median(steady), "host_ms_max": max(ms),
+                           "fps_over_lanes": S * 1e3 / statistics.median(steady),
+                           "per_stage": {k: {"count": v["count"], "mean_ms": v["mean_ms"]}
+                                         for k, v in vo.timer.summary().items()},
+                           "lanes_initialised": sum(r["initialised_at_frame"] is not None for r in trows)}
+    emit({"phase": "multi_seq", "check": "times", "unit": "host ms a lock-step frame", **times, "card": smi})
+
+    # --- the device's share of lock-step frames at S = 3 ------------------
+    vo = multi_seq_engine(len(ENGINE_SEEDS))
+    it = iter(range(ENGINE_FRAMES))
+
+    def step():
+        i = next(it)
+        vo.process_batch(np.stack([sc[0][i] for sc in scenes]), [i / FPS] * len(scenes))
+
+    for _ in range(11):  # through initialisation; the profiled frames track
+        step()
+    calls = 4
+    dev, host, wall = profile_device(step, calls)
+    busy = sum(dev.values()) / 1e3
+    emit({"phase": "multi_seq", "check": "device_share", "S": len(scenes), "frames": list(range(12, 12 + calls)),
+          "unit": "ms a lock-step frame", "wall": wall / calls, "device_busy": busy / calls,
+          "idle_share": 1.0 - busy / wall, "device_launches": host.pop("device records", 0) / calls,
+          "top_kernels": [[k[:70], v / 1e3 / calls] for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:8]],
+          "card": smi})
+    if failures:
+        raise AssertionError(f"multi_seq: checks failed: {failures}")
+    return {"multi_seq": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3289,6 +3933,19 @@ def main() -> int:
             return 1
         print(smi, flush=True)
         return 0
+    if "--multi-seq-witness" in sys.argv:
+        multi_seq_witness(smi)
+        print(smi, flush=True)
+        return 0
+    if "--only-multi-seq" in sys.argv:
+        try:
+            multi_seq_phase(smi)
+        except AssertionError as e:
+            emit({"phase": "multi_seq", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
     if "--only-ba" in sys.argv:
         torch.use_deterministic_algorithms(True, warn_only=True)
         _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
@@ -3324,7 +3981,9 @@ def main() -> int:
     long_launches, long_shape = timed("long", long_phase, smi, on_failure=({}, BA_KERNEL_SHAPES[0]))
     metric_launches = timed("metric", metric_phase, smi, on_failure={})
     extras_launches = timed("extras", extras_phase, smi, on_failure={})
-    by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches, **extras_launches}
+    multi_seq_launches = timed("multi_seq", multi_seq_phase, smi, on_failure={})
+    by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches, **extras_launches,
+               **multi_seq_launches}
     rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
     # the sorted kernel's launches are those of global_optimize's full BA;
     # the unsorted kernel runs only where "pallas" is asked for

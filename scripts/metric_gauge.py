@@ -34,7 +34,10 @@ JSON line a seed (``rgbd/long``: ~7 min a seed; the port's own sweep is
 ``chip_smoke.py --metric-seeds`` on the card). ``--reference
 mono/3d+local_map SEEDS`` and ``--reference snapshot SEEDS`` run
 ``chip_smoke.py`` phase 13's local-map and snapshot protocols in the JAX
-package (production mono configuration, matcher ``sg``).
+package (production mono configuration, matcher ``sg``); ``--reference
+multi_seq SEEDS [--runtime-seed N]`` runs phase 14's, the JAX package's
+``MultiSequenceVO`` with one lane a seed (``N``: another key for its
+samplers).
 """
 
 from __future__ import annotations
@@ -281,11 +284,96 @@ def extras_reference(cell, seeds):
         print(json.dumps(row), flush=True)
 
 
+def multi_seq_reference(seeds, runtime_seed=None):
+    """``chip_smoke.py`` phase 14's protocol in the JAX package: its
+    ``MultiSequenceVO`` with the production mono configuration
+    (``bench_accuracy.py``'s matcher ``sg``) at 240x320, one lane a
+    ``mono/3d`` scene seed, 24 frames stepped lock-step. One JSON line a
+    lane: the scale-corrected keyframe ATE, keyframes, keyframe poses
+    returned, the frame that initialised, frames lost (a frame that
+    ``_handle_lost`` could not re-anchor) and relocalizations; then the
+    lanes' mean keyframe ATE. Each lane's line carries its per-frame trace,
+    the fields of ``chip_smoke.multi_seq_trace`` that the JAX package's
+    tracker exposes."""
+    import bench_accuracy as ba
+    import numpy as np
+
+    from ur_mvo_tpu.camera import make_pinhole
+    from ur_mvo_tpu.parallel.multi_seq import MultiSequenceVO
+    from ur_mvo_tpu.utils.metrics import ate_rmse
+    from ur_mvo_tpu.utils.synthscene import render_sequence
+
+    N = 24
+    scenes = [render_sequence(N, ba.H, ba.W, ba.FX, seed=s, **ba.SCENES["3d"])[:2] for s in seeds]
+    cfg = ba._production_cfg("sg")
+    if runtime_seed is not None:
+        cfg.runtime.seed = runtime_seed  # the driver's and the trackers' keys
+    vo = MultiSequenceVO(cfg, make_pinhole(ba.W, ba.H, ba.FX, ba.FX, ba.W / 2, ba.H / 2), len(seeds))
+    counts = []
+    for tr in vo.trackers:
+        count = {"lost": 0, "reloc": 0}
+        handle_lost, relocalize = tr._handle_lost, tr._relocalize
+
+        def lost(*a, _f=handle_lost, _c=count, **k):
+            out = _f(*a, **k)
+            _c["lost"] += out is None
+            return out
+
+        def reloc(*a, _f=relocalize, _c=count, **k):
+            out = _f(*a, **k)
+            _c["reloc"] += out is not None
+            return out
+
+        tr._handle_lost, tr._relocalize = lost, reloc
+        counts.append(count)
+        trace = count["trace"] = []
+
+        def process(bank, ts, _t=tr, _f=tr.process, _log=trace, _c=count, **k):
+            # the frame as chip_smoke.multi_seq_trace logs it: the state it
+            # began in, the precomputed match's count, the batched row's
+            # match and inlier counts, lost, a keyframe inserted
+            e = {"s": "t" if _t.initialized else "i"}
+            m, pt = k.get("precomputed_match"), k.get("precomputed_track")
+            if m is not None:
+                e["m"] = int(m.num_valid())
+            if pt is not None:
+                e["row"] = [int(pt[0]), int(pt[1])]
+            lost = _c["lost"]
+            out = _f(bank, ts, **k)
+            e.update(lost=int(_c["lost"] > lost), kf=int(out is not None))
+            _log.append(e)
+            return out
+
+        tr.process = process
+    returned, init_at = [0] * len(seeds), [None] * len(seeds)
+    for i in range(N):
+        out = vo.process_batch(np.stack([sc[0][i] for sc in scenes]), [i / FPS] * len(seeds))
+        for s, pose in enumerate(out):
+            returned[s] += pose is not None
+            if init_at[s] is None and vo.trackers[s].initialized:
+                init_at[s] = i
+    ates = []
+    for s, (seed, (kts, _, kt)) in enumerate(zip(seeds, vo.trajectories())):
+        T_wc = scenes[s][1]
+        idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, N - 1)
+        ate = float(ate_rmse(np.asarray(kt), T_wc[idx][:, :3, 3], align=True, correct_scale=True)) if len(kts) >= 3 else None
+        ates.append(ate)
+        print(json.dumps({"cell": "multi_seq", "seed": seed, "runtime_seed": cfg.runtime.seed,
+                          "keyframe_ate": ate, "keyframes": len(kts),
+                          "keyframe_frame_ids": idx.tolist(), "keyframe_poses_returned": returned[s],
+                          "initialised_at_frame": init_at[s], "frames_lost": counts[s]["lost"],
+                          "relocalizations": counts[s]["reloc"], "trace": counts[s]["trace"]}), flush=True)
+    if all(a is not None for a in ates):
+        print(json.dumps({"cell": "multi_seq", "seeds": list(seeds), "mean_keyframe_ate": float(np.mean(ates))}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ba", nargs=2, type=int, metavar=("SEED", "FRAME"))
     ap.add_argument("--reference", nargs=2, metavar=("CELL", "SEEDS"),
-                    help="rgbd/3d, rgbd/long, mono/3d+local_map or snapshot; a comma list of seeds")
+                    help="rgbd/3d, rgbd/long, mono/3d+local_map, snapshot or multi_seq; a comma list of seeds")
+    ap.add_argument("--runtime-seed", type=int, default=None,
+                    help="multi_seq: runtime.seed, the keys of the driver's and the trackers' samplers")
     args = ap.parse_args()
     import jax
     import torch
@@ -297,7 +385,10 @@ def main():
         ba_at(*args.ba)
     if args.reference:
         cell, seeds = args.reference[0], [int(s) for s in args.reference[1].split(",")]
-        (extras_reference if cell in ("mono/3d+local_map", "snapshot") else reference_runs)(cell, seeds)
+        if cell == "multi_seq":
+            multi_seq_reference(seeds, args.runtime_seed)
+        else:
+            (extras_reference if cell in ("mono/3d+local_map", "snapshot") else reference_runs)(cell, seeds)
 
 
 if __name__ == "__main__":

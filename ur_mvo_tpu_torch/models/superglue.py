@@ -125,14 +125,15 @@ class SuperGlue(nn.Module):
     def encode(self, bank: FeatureBank, width: int, height: int) -> torch.Tensor:
         """Descriptor + positional encoding: desc + MLP(x, y, score), in
         float32 on the dtype-rounded parameters. With ``desc_center``,
-        descriptors are re-centered and re-normalized first."""
+        descriptors are re-centered and re-normalized first. A bank with a
+        leading lane axis encodes every lane."""
         desc = bank.desc
         if self.desc_center is not None:
             c = desc - self.desc_center.float()
             c = c / torch.clamp(torch.linalg.vector_norm(c, dim=-1, keepdim=True), min=1e-6)
-            desc = c * bank.valid[:, None]
+            desc = c * bank.valid[..., None]
         kpts_n = normalize_keypoints_for_matching(bank.kpts, width, height)
-        inputs = torch.cat([kpts_n, bank.scores[:, None]], dim=-1)
+        inputs = torch.cat([kpts_n, bank.scores[..., None]], dim=-1)
         return desc + _mlp(self.kenc, inputs, torch.float32)
 
     def _attention(self, layer: GNNLayer, x_q: torch.Tensor, x_kv: torch.Tensor, kv_valid: torch.Tensor,
@@ -150,23 +151,32 @@ class SuperGlue(nn.Module):
     def gnn(self, x0: torch.Tensor, x1: torch.Tensor, valid0: torch.Tensor, valid1: torch.Tensor,
             num_heads: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
         """Alternating self/cross attentional message passing; cross layers
-        attend to the other bank with the other bank's validity."""
-        x = torch.stack([x0, x1])  # (2, K, D)
-        valid = torch.stack([valid0, valid1])
-        valid_flip = valid.flip(0)
-        K = x.shape[1]
+        attend to the other bank with the other bank's validity. One pair
+        ((K, D) banks) or S pairs ((S, K, D)): the pairs' 2S banks are one
+        batch, so each layer is ONE attention call at B = 2S, lane i's
+        banks at rows 2i and 2i + 1."""
+        x = torch.stack([x0, x1], dim=-3)  # (2, K, D) or (S, 2, K, D)
+        valid = torch.stack([valid0, valid1], dim=-2)
+        lanes, K = x.shape[:-3], x.shape[-2]
+        B = 2 * math.prod(lanes)
+        valid_b = valid.reshape(B, K)
+        valid_flip = valid.flip(-2).reshape(B, K)
         for i, layer in enumerate(self.layers):
+            xb = x.reshape(B, K, D)
             if i % 2 == 0:
-                m = self._attention(layer, x, x, valid, num_heads)
+                m = self._attention(layer, xb, xb, valid_b, num_heads)
             else:
-                m = self._attention(layer, x, x.flip(0), valid_flip, num_heads)
-            x = x + _mlp(layer.mlp, torch.cat([x, m], dim=-1).reshape(2 * K, 2 * D)).reshape(2, K, D)
-        return x[0], x[1]
+                m = self._attention(layer, xb, x.flip(-3).reshape(B, K, D), valid_flip, num_heads)
+            x = x + _mlp(layer.mlp, torch.cat([xb, m], dim=-1).reshape(B * K, 2 * D)).reshape(lanes + (2, K, D))
+        return x[..., 0, :, :], x[..., 1, :, :]
 
     def match_scores(self, bank0: FeatureBank, bank1: FeatureBank, width: int, height: int,
                      sinkhorn_iterations: int = 20, num_heads: int = 4) -> torch.Tensor:
         """Two feature banks -> (K0+1, K1+1) log-assignment matrix
-        (dustbins included), masked for invalid slots."""
+        (dustbins included), masked for invalid slots. Banks with a leading
+        lane axis S match S pairs -> (S, K0+1, K1+1): encoder and GNN on
+        the stacked banks, the score product and the transport a lane at a
+        time (:func:`log_optimal_transport_kernel`)."""
         dt = self.dtype
         x0 = self.encode(bank0, width, height).to(dt)
         x1 = self.encode(bank1, width, height).to(dt)
@@ -174,7 +184,10 @@ class SuperGlue(nn.Module):
         d0 = self.final_proj(x0)
         d1 = self.final_proj(x1)
         # float32 product of the dtype-valued projections (exact products)
-        scores = torch.matmul(d0.float(), d1.float().T) / (D**0.25)
+        if d0.dim() == 3:
+            scores = torch.stack([torch.matmul(a.float(), b.float().T) for a, b in zip(d0, d1)]) / (D**0.25)
+        else:
+            scores = torch.matmul(d0.float(), d1.float().T) / (D**0.25)
         return log_optimal_transport_kernel(
             scores, bank0.valid, bank1.valid, self.bin_score.float(), sinkhorn_iterations, plain=not self.kernels
         )

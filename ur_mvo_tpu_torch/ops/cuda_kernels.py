@@ -136,7 +136,13 @@ def log_optimal_transport_kernel(
     """Dustbin transport through :func:`sinkhorn` (port of
     ``log_optimal_transport_pallas``): builds the couplings and marginals
     (:func:`transport_problem`), runs the sweeps, subtracts ``norm`` and
-    masks invalid pairs (with the couplings' own -1e9 there)."""
+    masks invalid pairs (with the couplings' own -1e9 there). ``scores``
+    (S, M, N) with (S, M)/(S, N) masks transports S pairs, each as its own
+    call (S launches on the card), so each keeps its single call's bits (the
+    JAX package vmaps the Pallas kernel)."""
+    if scores.dim() == 3:
+        return torch.stack([log_optimal_transport_kernel(s, v0, v1, alpha, iterations, plain)
+                            for s, v0, v1 in zip(scores, valid0, valid1)])
     couplings, log_mu, log_nu, norm, pair_mask = transport_problem(scores, valid0, valid1, alpha)
     Z = sinkhorn(couplings, log_mu, log_nu, iterations, plain=plain) - norm
     return torch.where(pair_mask, Z, couplings)

@@ -105,6 +105,7 @@ class Backend:
         # by reset_state
         self._loop_gen = torch.Generator(device=self.device)
         self._loop_gen.manual_seed(1234)
+        self.pose_calls = 0  # optimize_pose calls of place verification since the last reset
         self.timer = StageTimer()
         self.last_full_ba: Optional[dict] = None
 
@@ -152,6 +153,7 @@ class Backend:
         self._pending_ba = None
         self._loop_cooldown = 0
         self._loop_gen.manual_seed(1234)
+        self.pose_calls = 0
 
     # ------------------------------------------------------------------
     # Place recognition: loop closure and relocalization (beyond the
@@ -173,6 +175,7 @@ class Backend:
         cam, opt = self.camera, self.opt_cfg
         Xd, uvd, vd = self._upload(X), self._upload(uv3), self._upload(valid)
         pnp = ransac_pnp(self._loop_gen, Xd, uvd[:, :2], vd, self.K_mat, iterations=100, threshold_px=8.0)
+        self.pose_calls += 1
         res = optimize_pose(pnp.R_cw, pnp.t_cw, PoseObs(X=Xd, uv=uvd, valid=vd), cam.fx, cam.fy, cam.cx, cam.cy,
                             cam.bf, chi2_mono=opt.mono_point, chi2_stereo=opt.stereo_point, plain=self._plain)
         ok = torch.all(torch.isfinite(pnp.t_cw))

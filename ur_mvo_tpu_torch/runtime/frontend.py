@@ -20,8 +20,11 @@ pair by disparity and row inside the same step; RGB-D frames
 Local-map tracking (``local_map_tracking.enabled``) takes the two-program
 flow and, after a good track, associates the window's map points by
 projection and refines the pose once more on them (:meth:`_track_local_map`).
-:meth:`Tracker.adopt_map` starts the tracker on a loaded map. Not ported,
-raising if asked for: chunked processing, precomputed matches.
+:meth:`Tracker.adopt_map` starts the tracker on a loaded map. The
+multi-sequence VO (``parallel/multi_seq.py``) hands :meth:`Tracker.process` the
+frame's match and fused-step row, computed for all its sequences at once
+(:func:`fused_track_core_batched`). Not ported, raising if asked for:
+chunked processing.
 """
 
 from __future__ import annotations
@@ -55,26 +58,12 @@ def _t_wc(R_cw: torch.Tensor, t_cw: torch.Tensor) -> torch.Tensor:
     return -mv(R_cw.transpose(-1, -2), t_cw)
 
 
-def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy, bf,
-                     chi2_mono, chi2_stereo, pnp_iterations, pnp_threshold_px,
-                     min_match, max_jump, pnp_sets=None, plain=False):
-    """Post-match half of the fused frame step, all on the device:
-    candidate scatter + PnP prior + pose refinement + jump-guard rescue.
-
-    ``snapshot`` (K, 6) f32: [:, 0:3] candidate mappoint positions per REF
-    slot, [:, 3] a 2-level flag (2 = triangulated candidate with a usable
-    3D position, 1 = live but untriangulated mappoint whose TRACK ID must
-    still propagate so the point can gather observers and triangulate at a
-    later keyframe, 0 = none), [:, 4] the ref track table (mappoint ids,
-    exact in f32), [0:9, 5] last R_cw, [9:12, 5] last t_cw.
-
-    The refinement seeded at the PnP pose and its rescue seeded at the last
-    pose are ONE batch of two problems (one kernel launch on the card); the
-    rescue's result is selected on the device when the first one jumped.
-    Nothing is read back here. Returns the packed f32 vector [num_match,
-    n_inliers, R_cw(9), t_cw(3), frame_track(K), uvr(3K)] (see
-    ``Tracker.parse_fused_packed``). ``pnp_sets`` injects the PnP minimal
-    sets; ``plain`` asks for the plain pose optimizer on any device."""
+def _track_problem(generator, m: Matches, snapshot, uvr, K_mat, pnp_iterations, pnp_threshold_px, min_match,
+                   pnp_sets=None):
+    """Candidate scatter + PnP prior of the fused frame step: the two
+    pose-GN problems (seeded at the PnP prior, or at the last pose where it
+    is weak, and the rescue seeded at the last pose) and what the verdict
+    needs, all on the device."""
     K = m.idx1.shape[0]
     dev = snapshot.device
     cand_pos = snapshot[:, 0:3]
@@ -83,7 +72,6 @@ def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy
     ref_track = snapshot[:, 4]
     R_last_cw = snapshot[0:9, 5].reshape(3, 3)
     t_last_cw = snapshot[9:12, 5]
-    num_match = m.num_valid()
     idx1 = m.idx1.to(torch.int64)
 
     # Scatter ref-slot candidates to current-frame slots. Row K is a dump
@@ -110,25 +98,24 @@ def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy
     )
     R0 = torch.where(weak, R_last_cw, pnp.R_cw)
     t0 = torch.where(weak, t_last_cw, pnp.t_cw)
-    # problem 0: seeded at the PnP prior; problem 1: the rescue, seeded at
-    # the last frame's pose
-    obs2 = PoseObs(X=X.expand(2, K, 3), uv=uvr.expand(2, K, 3), valid=valid_cur.expand(2, K))
-    res = optimize_pose(
-        torch.stack([R0, R_last_cw]), torch.stack([t0, t_last_cw]), obs2, fx, fy, cx, cy, bf,
-        chi2_mono=chi2_mono, chi2_stereo=chi2_stereo, plain=plain,
-    )
+    return X, valid_cur, mp_slot, R0, t0, R_last_cw, t_last_cw
+
+
+def _track_verdict(num_match, uvr, valid_cur, mp_slot, R_last_cw, t_last_cw, R_cw, t_cw, inliers, n_inliers,
+                   min_match, max_jump):
+    """Jump guard + rescue over the two problems' results (``R_cw`` (2, 3,
+    3) ...), packed as :func:`fused_track_core` returns it."""
     # jump guard + rescue (see Tracker._track_frame for the rationale)
     t_wc_last = _t_wc(R_last_cw, t_last_cw)
-    jumps = torch.sqrt(torch.sum((_t_wc(res.R_cw, res.t_cw) - t_wc_last) ** 2, dim=-1))  # (2,)
+    jumps = torch.sqrt(torch.sum((_t_wc(R_cw, t_cw) - t_wc_last) ** 2, dim=-1))  # (2,)
     jump_ok = torch.isfinite(jumps) & (jumps <= max_jump)
-    enough = res.n_inliers >= min_match
+    enough = n_inliers >= min_match
     take_rescue = enough[0] & ~jump_ok[0]
     ok2 = jump_ok[1] & enough[1]
-    R_f = torch.where(take_rescue, res.R_cw[1], res.R_cw[0])
-    t_f = torch.where(take_rescue, res.t_cw[1], res.t_cw[0])
-    inl_f = torch.where(take_rescue, res.inliers[1] & ok2, res.inliers[0])
-    n_f = torch.where(take_rescue, torch.where(ok2, res.n_inliers[1], torch.zeros_like(res.n_inliers[1])),
-                      res.n_inliers[0])
+    R_f = torch.where(take_rescue, R_cw[1], R_cw[0])
+    t_f = torch.where(take_rescue, t_cw[1], t_cw[0])
+    inl_f = torch.where(take_rescue, inliers[1] & ok2, inliers[0])
+    n_f = torch.where(take_rescue, torch.where(ok2, n_inliers[1], torch.zeros_like(n_inliers[1])), n_inliers[0])
     # chi2 inlier classification applies only to slots that carried a 3D
     # constraint; matched-but-untriangulated ids are kept as they are
     keep_id = torch.where(valid_cur, inl_f, mp_slot >= 0)
@@ -137,6 +124,66 @@ def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy
         torch.stack([num_match.to(torch.float32), n_f.to(torch.float32)]),
         R_f.reshape(-1), t_f, frame_track, uvr.reshape(-1),
     ])
+
+
+def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy, bf,
+                     chi2_mono, chi2_stereo, pnp_iterations, pnp_threshold_px,
+                     min_match, max_jump, pnp_sets=None, plain=False):
+    """Post-match half of the fused frame step, all on the device:
+    candidate scatter + PnP prior + pose refinement + jump-guard rescue.
+
+    ``snapshot`` (K, 6) f32: [:, 0:3] candidate mappoint positions per REF
+    slot, [:, 3] a 2-level flag (2 = triangulated candidate with a usable
+    3D position, 1 = live but untriangulated mappoint whose TRACK ID must
+    still propagate so the point can gather observers and triangulate at a
+    later keyframe, 0 = none), [:, 4] the ref track table (mappoint ids,
+    exact in f32), [0:9, 5] last R_cw, [9:12, 5] last t_cw.
+
+    The refinement seeded at the PnP pose and its rescue seeded at the last
+    pose are ONE batch of two problems (one kernel launch on the card); the
+    rescue's result is selected on the device when the first one jumped.
+    Nothing is read back here. Returns the packed f32 vector [num_match,
+    n_inliers, R_cw(9), t_cw(3), frame_track(K), uvr(3K)] (see
+    ``Tracker.parse_fused_packed``). ``pnp_sets`` injects the PnP minimal
+    sets; ``plain`` asks for the plain pose optimizer on any device."""
+    return fused_track_core_batched(
+        [generator], [m], uvr[None], snapshot[None], K_mat, fx, fy, cx, cy, bf, chi2_mono, chi2_stereo,
+        pnp_iterations, pnp_threshold_px, min_match, max_jump, None if pnp_sets is None else [pnp_sets], plain,
+    )[0]
+
+
+def fused_track_core_batched(generators, matches, uvr, snapshots, K_mat, fx, fy, cx, cy, bf,
+                             chi2_mono, chi2_stereo, pnp_iterations, pnp_threshold_px,
+                             min_match, max_jump, pnp_sets=None, plain=False):
+    """:func:`fused_track_core` over S lanes: ``generators`` and
+    ``matches`` are per-lane sequences (or ``pnp_sets`` a sequence of S
+    injected PnP set tensors), ``uvr`` (S, K, 3), ``snapshots`` (S, K, 6).
+    The scatter and PnP prior run a lane at a time; the lanes' 2S pose
+    problems (lane i's at rows 2i, 2i + 1) are ONE ``optimize_pose`` call,
+    one kernel launch on the card. Returns the (S, 14 + 4K) packed rows,
+    lane i's row that of :func:`fused_track_core` on lane i's inputs and
+    draws, for one readback a lock-step frame."""
+    S, K = uvr.shape[0], uvr.shape[1]
+    sets = pnp_sets if pnp_sets is not None else [None] * S
+    gens = generators if generators is not None else [None] * S
+    probs = [_track_problem(gens[i], matches[i], snapshots[i], uvr[i], K_mat, pnp_iterations, pnp_threshold_px,
+                            min_match, sets[i]) for i in range(S)]
+    X = torch.stack([p[0] for p in probs for _ in range(2)])
+    valid = torch.stack([p[1] for p in probs for _ in range(2)])
+    uv = uvr.repeat_interleave(2, dim=0)
+    R0 = torch.stack([r for p in probs for r in (p[3], p[5])])
+    t0 = torch.stack([t for p in probs for t in (p[4], p[6])])
+    # lane i's problem 2i is seeded at its PnP prior, 2i + 1 (the rescue) at
+    # its last frame's pose
+    res = optimize_pose(R0, t0, PoseObs(X=X, uv=uv, valid=valid), fx, fy, cx, cy, bf,
+                        chi2_mono=chi2_mono, chi2_stereo=chi2_stereo, plain=plain)
+    rows = []
+    for i, (_, valid_cur, mp_slot, _, _, R_last_cw, t_last_cw) in enumerate(probs):
+        two = slice(2 * i, 2 * i + 2)
+        rows.append(_track_verdict(matches[i].num_valid(), uvr[i], valid_cur, mp_slot, R_last_cw, t_last_cw,
+                                   res.R_cw[two], res.t_cw[two], res.inliers[two], res.n_inliers[two],
+                                   min_match, max_jump))
+    return torch.stack(rows)
 
 
 class Tracker:
@@ -189,6 +236,8 @@ class Tracker:
         self._num_since_last_keyframe = 0
         self._frames_lost = 0  # all frames that could not be tracked
         self._relocalizations = 0
+        self._pose_calls = 0  # optimize_pose calls of this tracker's own flow
+        self.adopted_track = False  # whether the last frame adopted its precomputed_track
         self._lost_count = 0  # consecutive lost frames (relocalization)
         self._reloc_next_attempt = 0  # failed-relocalization backoff (_handle_lost)
 
@@ -219,6 +268,7 @@ class Tracker:
 
     def _optimize(self, R0, t0, obs: PoseObs, rounds: int = 4):
         cam, topt = self.camera, self.cfg.tracking_optimization
+        self._pose_calls += 1
         return optimize_pose(
             R0, t0, obs, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
             chi2_mono=topt.mono_point, chi2_stereo=topt.stereo_point, rounds=rounds, plain=self._plain,
@@ -327,6 +377,7 @@ class Tracker:
             uvr = torch.cat([bank.kpts, self._stereo_gate(bank, bank_right, m_lr)[:, None]], dim=1)
         with self.timer.span("match"):
             m = self.extractor.match(ref_bank, bank, True)
+        self._pose_calls += 1
         return fused_track_core(
             self._gen, m, uvr, snapshot, self.K_mat,
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
@@ -342,25 +393,45 @@ class Tracker:
         """One frame. ``bank``: FeatureBank (already extracted);
         ``bank_right``: the right image's FeatureBank (stereo);
         ``depth_lookup``: keypoints (K, 2) -> metric depth (K,), <= 0 where
-        unknown (RGB-D). Returns the 4x4 keyframe pose when a keyframe was
-        inserted, else None."""
-        if precomputed_match is not None or precomputed_track is not None:
-            raise NotImplementedError("Tracker.process: precomputed matches / tracks are not ported yet")
+        unknown (RGB-D). ``precomputed_match``: the Matches (reference or
+        init bank -> ``bank``) that a batching caller already computed
+        (``parallel/multi_seq.py``); it replaces the first match of the
+        frame and takes the two-program flow. ``precomputed_track``: that
+        caller's fused-step row for this frame, parsed
+        (:meth:`parse_fused_packed`); adopted unless tracking was weak, when
+        the frame falls through to the two-program flow. Returns the 4x4
+        keyframe pose when a keyframe was inserted, else None."""
         frame_id = self._frame_counter
         self._frame_counter += 1
+        self.adopted_track = False
 
         if not self._initialized:
             if bank_right is not None:
                 return self._init_stereo(bank, self._stereo_uvr(bank, bank_right), timestamp, frame_id)
-            return self._try_initialize(bank, timestamp, frame_id, depth_lookup)
+            return self._try_initialize(bank, timestamp, frame_id, depth_lookup, precomputed_match=precomputed_match)
 
         min_match = self.cfg.keyframe.min_num_match
         uvr = None  # the fused step RETURNS uvr in its packed output
 
+        if precomputed_track is not None:
+            # the caller ran the fused core for this lane: adopt its result,
+            # unless tracking was weak (the promote / lost ladder below)
+            num_match, num_inliers, pose, frame_track, p_uvr = precomputed_track
+            if num_match >= min_match and num_inliers >= min_match:
+                self.adopted_track = True
+                ref_frame_id = self._ref_frame_id
+                if self.cfg.local_map_tracking.enabled:
+                    with self.timer.span("local_map"):
+                        pose, frame_track, num_inliers = self._track_local_map(bank, pose, frame_track, num_inliers)
+                return self._finish_tracked_frame(bank, p_uvr, pose, frame_track, num_inliers, timestamp, frame_id,
+                                                  ref_frame_id, depth_lookup)
+
         # without a baseline there is no disparity gate: stereo then takes
         # the two-program flow, as in the JAX package; so does a frame of
-        # local-map tracking (its init attempts stay fused)
-        if self._fused and not self.cfg.local_map_tracking.enabled and (bank_right is None or self.camera.bf > 0):
+        # local-map tracking (its init attempts stay fused) and one whose
+        # match was precomputed
+        if (self._fused and not self.cfg.local_map_tracking.enabled and (bank_right is None or self.camera.bf > 0)
+                and precomputed_match is None):
             num_match, num_inliers, pose, frame_track, uvr = self._track_frame_fused(bank, bank_right)
             if num_match < min_match:
                 promoted = self._promote_last_frame(timestamp)
@@ -375,7 +446,7 @@ class Tracker:
         else:
             uvr = self._stereo_uvr(bank, bank_right)
             with self.timer.span("match"):
-                matches = self.extractor.match(self._ref_bank, bank)
+                matches = precomputed_match if precomputed_match is not None else self.extractor.match(self._ref_bank, bank)
                 num_match = int(matches.num_valid())
 
             ref_track = self.backend.store.kf_track[self._ref_slot]
@@ -571,7 +642,11 @@ class Tracker:
         self._num_since_last_keyframe = 0
         return pose
 
-    def _try_initialize(self, bank, timestamp, frame_id, depth_lookup=None) -> Optional[np.ndarray]:
+    def _try_initialize(self, bank, timestamp, frame_id, depth_lookup=None,
+                        precomputed_match=None) -> Optional[np.ndarray]:
+        """Two-view mono initialization against the held init bank (or the
+        single-frame RGB-D one). ``precomputed_match`` (init bank ->
+        ``bank``) replaces the attempt's match and skips the fused init."""
         if depth_lookup is not None:
             return self._init_rgbd(bank, timestamp, frame_id, depth_lookup)
         n_feat = int(bank.num_valid())
@@ -596,7 +671,7 @@ class Tracker:
             return None
 
         K = bank.capacity
-        if self._fused:
+        if self._fused and precomputed_match is None:
             # ONE packed readback per init attempt
             flat = self._fused_init(self._init_bank, bank).cpu().numpy()
             success = flat[0] > 0.5
@@ -613,7 +688,7 @@ class Tracker:
             kpts1, valid1b, desc1, scores1 = self._materialize_bank(bank)
             p1 = kpts0
         else:
-            matches = self.extractor.match(self._init_bank, bank)
+            matches = precomputed_match if precomputed_match is not None else self.extractor.match(self._init_bank, bank)
             idx1 = matches.idx1.cpu().numpy()
             p1, valid0, desc0, scores0 = self._materialize_bank(self._init_bank)
             kpts1, valid1b, desc1, scores1 = self._materialize_bank(bank)
@@ -1025,6 +1100,14 @@ class Tracker:
     def relocalizations(self) -> int:
         """Frames since the last reset re-anchored by relocalization."""
         return self._relocalizations
+
+    @property
+    def pose_calls(self) -> int:
+        """``optimize_pose`` calls (one pose-GN launch each on the card)
+        since the last reset made by this tracker's own flow and its
+        backend's place verification; a batching caller's calls for its
+        ``precomputed_track`` are not among them."""
+        return self._pose_calls + self.backend.pose_calls
 
     def current_pose(self) -> np.ndarray:
         return self._last_pose.copy()
