@@ -29,6 +29,7 @@ from ur_mvo_tpu_torch import config as tconfig
 from ur_mvo_tpu_torch.runtime.backend import Backend
 from ur_mvo_tpu_torch.utils.synthscene import out_and_back_trajectory, so3_exp
 from ur_mvo_tpu_torch.weights import map_store_from
+from tests.torch_mesh_util import CAM, N_KF, make_drifted_map, one_rank_mesh
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -42,15 +43,17 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _port_backend(cam_args, jstore, **bcfg):
+    """The port's backend on a copy of the JAX store ``jstore``."""
+    return Backend(tcamera.make_pinhole(*cam_args), tconfig.BackendConfig(**bcfg), tconfig.OptimizationConfig(),
+                   store=map_store_from(jstore), keypoints_per_frame=jstore.cfg.keypoints_per_frame, device="cpu")
+
+
 def _backends(cam_args, jstore, **bcfg):
     """A JAX backend on ``jstore`` and the port's on a copy of it."""
-    jcfg, tcfg = jconfig.BackendConfig(**bcfg), tconfig.BackendConfig(**bcfg)
-    K = jstore.cfg.keypoints_per_frame
-    jb = JaxBackend(jcamera.make_pinhole(*cam_args), jcfg, jconfig.OptimizationConfig(), store=jstore,
-                    keypoints_per_frame=K)
-    tb = Backend(tcamera.make_pinhole(*cam_args), tcfg, tconfig.OptimizationConfig(), store=map_store_from(jstore),
-                 keypoints_per_frame=K, device="cpu")
-    return jb, tb
+    jb = JaxBackend(jcamera.make_pinhole(*cam_args), jconfig.BackendConfig(**bcfg), jconfig.OptimizationConfig(),
+                    store=jstore, keypoints_per_frame=jstore.cfg.keypoints_per_frame)
+    return jb, _port_backend(cam_args, jstore, **bcfg)
 
 
 def _assert_same_store(a, b, atol):
@@ -121,47 +124,10 @@ def test_detect_loop_on_collapsed_descriptors_matches_jax():
 # The Sim3 helpers and global_optimize on one map
 # ---------------------------------------------------------------------------
 
-N_KF, N_PTS, K_FEAT = 12, 240, 256
-CAM = (320, 240, 260.0, 260.0, 160.0, 120.0)
-
-
 @pytest.fixture()
 def drifted_map():
-    """A JAX store over a forward path: 12 keyframes (frame ids 0, 2, 7,
-    12, ...: the first two are the full BA's gauge) with scale and heading
-    drift that grows along the path, 240 triangulated points
-    observed by every keyframe that sees them (0.5 px noise), and one
-    loop edge from the first to the last keyframe measured from the truth
-    with an inter-leg scale of 1.25."""
-    rng = np.random.default_rng(5)
-    st = JaxStore(JaxStoreConfig(max_keyframes=16, max_mappoints=512, keypoints_per_frame=K_FEAT))
-    fx, fy, cx, cy = CAM[2:]
-    X = np.stack([rng.uniform(-2, 5, N_PTS), rng.uniform(-1.5, 1.5, N_PTS), rng.uniform(4, 8, N_PTS)], 1)
-    R_true = [so3_exp(np.array([0.0, 0.04 * k, 0.0])) for k in range(N_KF)]
-    t_true = [np.array([0.25 * k, 0.02 * np.sin(k), 0.0]) for k in range(N_KF)]
-    mp = st.alloc_mappoints(N_PTS)
-    st.mp_good[mp] = True
-    slots = []
-    for k in range(N_KF):
-        pc = (X - t_true[k]) @ R_true[k]
-        u, v = fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy
-        seen = (pc[:, 2] > 0.5) & (u > 0) & (u < CAM[0]) & (v > 0) & (v < CAM[1])
-        kpts = np.zeros((K_FEAT, 3), np.float32)
-        kpts[:N_PTS] = np.stack([u + rng.normal(0, 0.5, N_PTS), v + rng.normal(0, 0.5, N_PTS), -np.ones(N_PTS)], 1)
-        drift = 1.0 + 0.02 * k
-        R_est = so3_exp(np.array([0.0, 0.004 * k, 0.002 * k])) @ R_true[k]
-        s = st.alloc_keyframe(max(5 * k - 3, 0), k / 6.0, R_est.astype(np.float32), (drift * t_true[k]).astype(np.float32),
-                              kpts, np.arange(K_FEAT) < N_PTS)
-        ids = np.nonzero(seen)[0]
-        st.add_observations(s, mp[ids], ids)
-        slots.append(s)
-    st.mp_pos[mp] = (X + rng.normal(0, 0.03, X.shape)).astype(np.float32)
-    for s in slots:
-        st.snapshot_keyframe_geometry(s)
-    R_ij = (R_true[0].T @ R_true[-1]).astype(np.float32)
-    t_ij = (R_true[0].T @ (t_true[-1] - t_true[0])).astype(np.float32)
-    st.loop_edges.append((slots[0], slots[-1], R_ij, t_ij, 3.0, 1.25))
-    return st, np.asarray(slots)
+    """``make_drifted_map()``."""
+    return make_drifted_map()
 
 
 def test_loop_scale_helpers_match_jax(drifted_map):
@@ -186,7 +152,7 @@ def test_loop_scale_helpers_match_jax(drifted_map):
 
 
 @pytest.mark.parametrize("full_ba", [False, True])
-def test_global_optimize_matches_jax(drifted_map, monkeypatch, full_ba):
+def test_global_optimize_matches_jax(drifted_map, monkeypatch, full_ba, tmp_path):
     """Scale ramp, pose graph and point correction agree to float32
     rounding (1e-5). The full BA's ``"auto"`` is JAX's one-hot matmul with
     bf16 point-side summands and the port's float32 ``index_add_``; the JAX
@@ -197,7 +163,9 @@ def test_global_optimize_matches_jax(drifted_map, monkeypatch, full_ba):
 
     monkeypatch.setattr(jba, "resolve_assembly", lambda cfg, n_obs=0, n_points=0: "scatter")
     jstore, order = drifted_map
-    jb, tb = _backends(CAM, jstore, ba_iterations_phase1=4, ba_iterations_phase2=2)
+    bcfg = dict(ba_iterations_phase1=4, ba_iterations_phase2=2)
+    jb, tb = _backends(CAM, jstore, **bcfg)
+    on_mesh, alone = (_port_backend(CAM, jstore, **bcfg) for _ in range(2))
     before = tb.store.kf_t[order].copy()
     jb.global_optimize(full_ba=full_ba)
     tb.global_optimize(full_ba=full_ba)
@@ -208,5 +176,13 @@ def test_global_optimize_matches_jax(drifted_map, monkeypatch, full_ba):
     if full_ba:
         assert tb.last_full_ba["assembly"] == "scatter" and tb.last_full_ba["keyframes"] == N_KF
     else:
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
-            tb.global_optimize(mesh=object())
+        # the mesh path at one rank (gloo, this process): the full BA through
+        # shard_problem and dist_bundle_adjust with each shard's bf16
+        # point-side summands, against the port's own full BA
+        with one_rank_mesh(tmp_path) as mesh:
+            on_mesh.global_optimize(mesh=mesh)
+        alone.global_optimize()
+        full = on_mesh.last_full_ba
+        assert full["assembly"] == "dist" and full["world"] == 1 and full["rank_assembly"] == ["bf16_point_side"]
+        for f in ("kf_R", "kf_t"):
+            np.testing.assert_allclose(getattr(on_mesh.store, f)[order], getattr(alone.store, f)[order], atol=1e-3)

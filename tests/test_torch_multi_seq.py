@@ -4,7 +4,8 @@ against the JAX package's ``MultiSequenceVO`` on the CPU, at a small size
 on random weights drawn with numpy and carried across with ``weights.py``:
 the batched extraction, match and track, each batched lane against the
 port's single-lane call, the oracle lanes' convergence, the neural
-mechanics, the tracker's precomputed match and ``mesh=``.
+mechanics, the tracker's precomputed match and ``mesh=`` at one rank (two
+ranks: ``tests/test_torch_parallel.py``).
 
 Samplers differ (JAX's counter-based keys against a torch generator), so
 every RANSAC gets the JAX package's own sets: ``sample_minimal_sets`` on
@@ -37,6 +38,7 @@ from ur_mvo_tpu_torch.runtime.frontend import Tracker, fused_track_core
 from ur_mvo_tpu_torch.utils.metrics import ate_rmse
 from ur_mvo_tpu_torch.utils.synthscene import render_sequence
 from ur_mvo_tpu_torch.weights import feature_bank_from_numpy, matches_from_numpy, superglue_from_numpy, superpoint_from_numpy
+from tests.torch_mesh_util import one_rank_mesh
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -376,11 +378,23 @@ def test_precomputed_match_gives_the_same_keyframes():
         np.testing.assert_array_equal(a, b)
 
 
-def test_mesh_raises_and_the_device_defaults_to_cuda():
+def test_mesh_raises_and_the_device_defaults_to_cuda(tmp_path):
+    """``mesh=``: a mesh of one rank (this process, gloo) holds every lane;
+    S that the mesh size does not divide raises before anything is built
+    (a stand-in of two ranks); without a mesh the device defaults to
+    ``cuda``. World 2: ``tests/test_torch_parallel.py``."""
     cfg = _cfg(tconfig.Configs)
     cam = make_pinhole(W, H, FX, FX, W / 2, H / 2)
-    with pytest.raises(NotImplementedError, match="A item 4"):
-        MultiSequenceVO(cfg, cam, 2, mesh=object(), device="cpu")
+    with one_rank_mesh(tmp_path) as mesh:
+        vo = MultiSequenceVO(cfg, cam, 2, mesh=mesh, device="cpu")
+        assert vo.lanes == [0, 1] and len(vo.trackers) == len(vo.generators) == 2
+
+    class TwoRanks:
+        def size(self):
+            return 2
+
+    with pytest.raises(ValueError, match="do not split over a mesh of 2"):
+        MultiSequenceVO(cfg, cam, 3, mesh=TwoRanks(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MultiSequenceVO(cfg, cam, 2)

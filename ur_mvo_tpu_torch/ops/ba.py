@@ -324,6 +324,11 @@ def build_normal_terms_sorted(prob_s: BAProblem, R_cw, t_cw, X, fx, fy, cx, cy, 
                               obs_slot=layout.slot, reduce=reduce)
 
 
+# the JAX package's bound on a one-hot indicator (O x P elements): past it
+# its matmul assembly would materialize gigabytes
+ONE_HOT_LIMIT = 128 * 1024 * 1024
+
+
 def resolve_assembly(cfg: BAConfig, n_obs: int = 0, n_points: int = 0) -> str:
     """``"auto"`` -> ``"scatter"`` up to 128M indicator elements (O x P),
     ``"sorted"`` beyond: the JAX package's threshold, where its one-hot
@@ -331,19 +336,21 @@ def resolve_assembly(cfg: BAConfig, n_obs: int = 0, n_points: int = 0) -> str:
     observations). Window BA stays far below it. Other values pass."""
     if cfg.assembly != "auto":
         return cfg.assembly
-    if n_obs * n_points > 128 * 1024 * 1024:
+    if n_obs * n_points > ONE_HOT_LIMIT:
         return "sorted"
     return "scatter"
 
 
-def solve_schur(H_cc, b_c, H_pp, b_p, U, slot_active, point_free, lam):
+def solve_schur(H_cc, b_c, H_pp, b_p, U, slot_active, point_free, lam, psum=None):
     """Damped Schur-complement solve over the FREE-frame camera system ->
     (delta_c (FF, 6) per free slot, delta_p (P, 3)).
 
     ``slot_active``: (FF,) mask of free slots actually populated;
     ``point_free``: (P,). Inactive unknowns get a pinned identity block
     (delta = 0). A reduced system that is not positive definite yields
-    NaN steps, which the caller's accept test rejects.
+    NaN steps, which the caller's accept test rejects. ``psum``: on a mesh,
+    the sum over ranks of ``[H_cc, b_c, S_red, b_red]`` (one collective);
+    every rank then solves the same reduced system.
     """
     assert_true_float32_matmul()
     FF = H_cc.shape[0]
@@ -358,13 +365,16 @@ def solve_schur(H_cc, b_c, H_pp, b_p, U, slot_active, point_free, lam):
     Ur = U.reshape(P, FF * 6, 3)
     V = mm(Ur, Hpp_inv)  # (P, 6FF, 3): U Hpp^-1
     S_red = torch.matmul(V.permute(1, 0, 2).reshape(FF * 6, P * 3), Ur.permute(0, 2, 1).reshape(P * 3, FF * 6))
+    b_red = torch.sum(V * b_p[:, None, :], dim=(0, 2))
+    if psum is not None:
+        H_cc, b_c, S_red, b_red = psum([H_cc, b_c, S_red, b_red])
 
     S_full = torch.block_diag(*(H_cc + lam * eye6)) - S_red
 
     # Pin inactive rows/cols: S <- M S M + (I - M).
     M = torch.repeat_interleave(slot_active, 6).to(dt)
     S_full = S_full * M[:, None] * M[None, :] + torch.diag(1.0 - M)
-    b_s = (b_c.reshape(FF * 6) - torch.sum(V * b_p[:, None, :], dim=(0, 2))) * M
+    b_s = (b_c.reshape(FF * 6) - b_red) * M
 
     L, info = torch.linalg.cholesky_ex(S_full)
     dc = torch.cholesky_solve(b_s[:, None], L)[:, 0]
@@ -392,11 +402,18 @@ def bundle_adjust(
     bf: float = 0.0,
     cfg: BAConfig = BAConfig(),
     plain: bool = False,
+    psum=None,
 ) -> BAResult:
     """Two-phase robust LM bundle adjustment; nothing is read back to the
     host inside it. ``plain=True`` runs the point-reduce kernels' plain
     versions on any device (the on-card comparison); the inlier verdicts
-    come back in the caller's observation order on every route."""
+    come back in the caller's observation order on every route.
+
+    ``psum``: ``prob`` is one rank's block of points and observations
+    (``parallel/dist_ba``), and ``psum(tensors)`` sums a list of tensors
+    over the ranks in one collective. It sums the reduced camera system
+    each step and every cost, so every flag of the loop reads the same
+    values on every rank; ``X`` and the verdicts stay the rank's own."""
     assembly = resolve_assembly(cfg, n_obs=prob.obs_frame.shape[0], n_points=prob.X.shape[0])
     FF = cfg.max_free_frames
     frame_free = _effective_free(prob, FF)
@@ -419,20 +436,24 @@ def bundle_adjust(
     R_cw0, t_cw0 = _invert_poses(prob.R_wc, prob.t_wc)
     geom = (fx, fy, cx, cy, bf)
 
+    def cost_of(R_cw, t_cw, X, active, use_huber):
+        cost = _cost(prob, R_cw, t_cw, X, *geom, cfg, active, use_huber)
+        return cost if psum is None else psum([cost])[0]
+
     def lm_phase(state, active, n_iters, use_huber):
         def linearize(R_cw, t_cw, X):
             return builder(prob, R_cw, t_cw, X, *geom, cfg, active, use_huber)[:5]
 
         R_cw, t_cw, X = state
-        cost = _cost(prob, R_cw, t_cw, X, *geom, cfg, active, use_huber)
+        cost = cost_of(R_cw, t_cw, X, active, use_huber)
         lam = torch.tensor(cfg.lm_lambda0, dtype=X.dtype, device=X.device)
         lin = linearize(R_cw, t_cw, X)
         done = torch.zeros((), dtype=torch.bool, device=X.device)
         for _ in range(n_iters):
-            delta_c_free, delta_p = solve_schur(*lin, slot_active, point_free, lam)
+            delta_c_free, delta_p = solve_schur(*lin, slot_active, point_free, lam, psum=psum)
             delta_c = delta_c_free[free_rank] * frame_free[:, None].to(delta_c_free.dtype)
             R_try, t_try, X_try = _apply_update(R_cw, t_cw, X, delta_c, delta_p, frame_free, point_free)
-            cost_try = _cost(prob, R_try, t_try, X_try, *geom, cfg, active, use_huber)
+            cost_try = cost_of(R_try, t_try, X_try, active, use_huber)
             accept = cost_try < cost
             # converged: an accepted step no longer moves the cost
             rel = (cost - cost_try) / torch.clamp(cost, min=1e-12)

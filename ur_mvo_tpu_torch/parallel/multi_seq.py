@@ -18,9 +18,15 @@ so a lane's draws depend neither on S nor on its neighbours. The
 extraction is that of the JAX package's MultiSequenceVO: /255 where the image's
 maximum exceeds 1.5, no rectification and no mask.
 
+With ``mesh=`` (a 1-D ``DeviceMesh``, ``parallel/mesh.make_mesh``) the
+sequences are sharded over the ranks: rank r holds lanes [r S/n, (r+1) S/n)
+(their trackers, their batched extract, match and track, their generators,
+still seeded by the global lane index), every rank passes all S images and
+gets all S lanes' poses back. A lane's bits do not depend on S, on its slot
+or on the mesh.
+
 This implements BASELINE.json configs #3/#5 ("all Harbor seqs batched",
-"multi-sequence concurrent VO"). Not ported: ``mesh=`` (the sequences
-sharded over devices).
+"multi-sequence concurrent VO").
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ur_mvo_tpu_torch.ops.keypoints import FeatureBank, select_keypoints
 from ur_mvo_tpu_torch.ops.matching import Matches, decode_assignment, filter_matches, gather_match_points
 from ur_mvo_tpu_torch.ops.nn_matcher import match_nn
 from ur_mvo_tpu_torch.ops.ransac import ransac_fundamental
+from ur_mvo_tpu_torch.parallel.mesh import gather_objects, mesh_rank_device, shard_batch
 from ur_mvo_tpu_torch.runtime.frontend import Tracker, fused_track_core_batched
 from ur_mvo_tpu_torch.utils.timing import StageTimer
 
@@ -77,19 +84,29 @@ class _SeqExtractorView:
 
 
 class MultiSequenceVO:
-    """S monocular sequences stepped lock-step on one device.
+    """S monocular sequences stepped lock-step on one device, or sharded
+    over the ranks of ``mesh``.
 
     ``extractors``: one per sequence (the oracle, for tests) in place of
     the batched programs' views. ``device`` defaults to ``cuda`` (raises
-    without CUDA); ``kernels=False`` runs every kernel's plain version on
-    any device (the on-card comparison). ``mesh`` is not ported."""
+    without CUDA; on a mesh, the rank's device); ``kernels=False`` runs
+    every kernel's plain version on any device (the on-card comparison).
+    ``lanes``: the global indices of this rank's sequences; ``trackers``
+    and ``generators`` hold theirs."""
 
     def __init__(self, cfg: Configs, camera: Camera, num_sequences: int, extractors: Optional[Sequence] = None,
                  mesh=None, device: DeviceLike = None, kernels: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiSequenceVO(mesh=...): sequences sharded over devices are not ported (ROADMAP queue A item 4)")
-        self.device = dev = resolve_device(device)
+        if mesh is None:
+            self.device = dev = resolve_device(device)
+            self.lanes = list(range(num_sequences))
+        else:
+            n = mesh.size()
+            if num_sequences % n:
+                raise ValueError(f"MultiSequenceVO: {num_sequences} sequences do not split over a mesh of {n}")
+            per = num_sequences // n
+            self.device = dev = mesh_rank_device(mesh, device)
+            self.lanes = list(range(mesh.get_local_rank() * per, (mesh.get_local_rank() + 1) * per))
+        self.mesh = mesh
         self.cfg = cfg
         self.camera = camera
         self.S = num_sequences
@@ -125,16 +142,16 @@ class MultiSequenceVO:
         # explicit config value > checkpoint-embedded calibration > 0.5
         self.match_threshold = superglue.resolve_matching_threshold(sg_cfg)
 
-        # one generator a lane: F-RANSAC, then the PnP prior, then the
-        # lane's fallback matches
+        # one generator a lane, seeded by its global index: F-RANSAC, then
+        # the PnP prior, then the lane's fallback matches
         self.generators = [torch.Generator(device=dev).manual_seed(cfg.runtime.seed + 1000 * (i + 1))
-                           for i in range(num_sequences)]
+                           for i in self.lanes]
         self.timer = StageTimer()
         self.view_calls: "collections.Counter[str]" = collections.Counter()  # the views' batched calls at S = 1
         self.last_frame: dict = {}
         self.trackers: List[Tracker] = []
-        for i in range(num_sequences):
-            ext = extractors[i] if extractors is not None else _SeqExtractorView(self, i)
+        for j, i in enumerate(self.lanes):
+            ext = extractors[i] if extractors is not None else _SeqExtractorView(self, j)
             self.trackers.append(Tracker(cfg, camera, ext, device=dev, kernels=kernels))
         self.K_mat = self.trackers[0].K_mat if self.trackers else None
 
@@ -201,26 +218,45 @@ class MultiSequenceVO:
 
     # ------------------------------------------------------------------
 
+    def _own(self, items):
+        """This rank's part of a per-sequence list (all of it without a mesh)."""
+        return items[self.lanes[0] : self.lanes[-1] + 1] if self.lanes else items[:0]
+
+    def _gather(self, local: list) -> list:
+        """Every rank's per-lane results in global lane order."""
+        if self.mesh is None:
+            return local
+        return [x for part in gather_objects(local, self.mesh) for x in part]
+
     def process_batch(self, images, timestamps: Sequence[float]) -> List[Optional[np.ndarray]]:
         """One lock-step frame for all sequences. ``images``: (S, H, W).
-        Returns per-sequence keyframe poses (or None)."""
+        Returns per-sequence keyframe poses (or None); on a mesh each rank
+        extracts and steps its own lanes and every rank gets all S."""
         if len(images) != self.S:
             raise ValueError(f"process_batch: {len(images)} images for {self.S} sequences")
         with self.timer.span("extract"):
-            banks_b = self._extract_batched(images)
-        return self.process_banks(banks_b, timestamps)
+            banks_b = self._extract_batched(self._own(images))
+        return self._gather(self._process_lanes(banks_b, self._own(list(timestamps))))
 
     def process_banks(self, banks_b: FeatureBank, timestamps: Sequence[float]) -> List[Optional[np.ndarray]]:
         """:meth:`process_batch` after the extraction: ``banks_b``, one
-        FeatureBank a sequence with a leading lane axis, through the batched
-        match, the batched track and each sequence's tracker.
-        ``last_frame`` then counts the lanes that tracked in the batch,
-        those whose tracker adopted its row (the others fell back to their
-        tracker's own flow) and the ``optimize_pose`` calls the lanes'
-        own flows made (:attr:`Tracker.pose_calls`)."""
+        FeatureBank a sequence with a leading lane axis (all S; on a mesh
+        each rank takes its block), through the batched match, the batched
+        track and each sequence's tracker. ``last_frame`` then counts, over
+        this rank's lanes, those that tracked in the batch, those whose
+        tracker adopted its row (the others fell back to their tracker's
+        own flow) and the ``optimize_pose`` calls the lanes' own flows made
+        (:attr:`Tracker.pose_calls`)."""
         if banks_b.scores.shape[0] != self.S:
             raise ValueError(f"process_banks: {banks_b.scores.shape[0]} banks for {self.S} sequences")
-        banks = [lane(banks_b, i) for i in range(self.S)]
+        if self.mesh is not None:
+            banks_b = shard_batch(banks_b, self.mesh)
+        return self._gather(self._process_lanes(banks_b, self._own(list(timestamps))))
+
+    def _process_lanes(self, banks_b: FeatureBank, timestamps: Sequence[float]) -> List[Optional[np.ndarray]]:
+        """This rank's lanes' frame: ``banks_b`` and ``timestamps`` theirs."""
+        S = len(self.trackers)
+        banks = [lane(banks_b, i) for i in range(S)]
 
         # primary match partners: the ref keyframe bank (tracking) or the
         # init bank (initialization); the lane's own bank otherwise
@@ -238,7 +274,7 @@ class MultiSequenceVO:
         packed = None
         if any(track_lane):
             K = self.cfg.superpoint.capacity
-            snaps = np.zeros((self.S, K, 6), np.float32)
+            snaps = np.zeros((S, K, 6), np.float32)
             for i, t in enumerate(self.trackers):
                 if track_lane[i]:
                     snaps[i] = t.fused_snapshot()
@@ -262,14 +298,17 @@ class MultiSequenceVO:
                                   timestamps: Sequence[float]) -> List[Optional[np.ndarray]]:
         """Oracle-extractor variant for tests: each sequence extracts from
         its ground-truth pose and matches by slot identity on its own."""
-        return [t.process(t.extractor.extract_with_pose(T_wcs[i]), timestamps[i]) for i, t in enumerate(self.trackers)]
+        T_wcs, timestamps = self._own(list(T_wcs)), self._own(list(timestamps))
+        return self._gather([t.process(t.extractor.extract_with_pose(T_wcs[i]), timestamps[i])
+                             for i, t in enumerate(self.trackers)])
 
     # ------------------------------------------------------------------
 
     def trajectories(self):
-        """Per sequence, its keyframes' (timestamps, R_wc, t_wc) in insertion order."""
+        """Per sequence, its keyframes' (timestamps, R_wc, t_wc) in insertion
+        order (on a mesh, every rank gets all S)."""
         out = []
         for t in self.trackers:
             t.backend.flush_pending_ba()
             out.append(t.backend.store.trajectory())
-        return out
+        return self._gather(out)

@@ -1,7 +1,6 @@
 """Mapping backend: keyframe insertion, triangulation, windowed BA, loop
 closure, relocalization and global optimization (port of
-``ur_mvo_tpu.runtime.backend``; the sharded full BA over a mesh is not
-ported).
+``ur_mvo_tpu.runtime.backend``).
 
 Per keyframe: create mappoints for unmatched features, multi-view
 triangulate once a point has > 2 observers, covisibility-window local BA
@@ -10,7 +9,8 @@ removal with covisibility decay. Place recognition (``detect_loop``,
 ``relocalize``) retrieves keyframes by centered global descriptors and
 verifies them with mutual-NN matching, PnP-RANSAC, the pose-only optimizer
 and a structure-aware refinement BA. ``global_optimize`` consumes the loop
-edges: Sim3 scale ramp, SE(3) pose graph, point correction, full BA.
+edges: Sim3 scale ramp, SE(3) pose graph, point correction, full BA
+(on a mesh: ``parallel/dist_ba``, every rank solving rank 0's problem).
 
 The numeric work runs on ``device`` (``ops/triangulation.py``,
 ``ops/ba.py``); this module does vectorized numpy gathers between the
@@ -36,6 +36,8 @@ from ur_mvo_tpu_torch.ops.pnp import ransac_pnp
 from ur_mvo_tpu_torch.ops.pose_graph import PoseGraph, optimize_pose_graph, sequential_edges_from_trajectory
 from ur_mvo_tpu_torch.ops.pose_opt import PoseObs, PoseOptResult, optimize_pose
 from ur_mvo_tpu_torch.ops.triangulation import triangulate_bearings
+from ur_mvo_tpu_torch.parallel.dist_ba import dist_bundle_adjust, shard_assembly, shard_problem
+from ur_mvo_tpu_torch.parallel.mesh import gather_objects, replicate_object
 from ur_mvo_tpu_torch.runtime.map_store import MapStore, StoreConfig
 from ur_mvo_tpu_torch.utils.timing import StageTimer
 
@@ -828,12 +830,11 @@ class Backend:
         the map carried with its keyframes, then a full BA over all
         keyframes and points (keyframes with frame id <= 2 fixed as gauge).
         Each part is a span of ``self.timer``: ``global_scale``,
-        ``global_pose_graph``, ``global_points``, ``global_full_ba``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "global_optimize(mesh=...): the sharded full BA (parallel/dist_ba) is not ported yet "
-                "(ROADMAP.md queue A item 13)"
-            )
+        ``global_pose_graph``, ``global_points``, ``global_full_ba``.
+        ``mesh``: a 1-D ``DeviceMesh`` (``parallel/mesh.make_mesh``); every
+        rank calls this on its store, and the full BA runs sharded over the
+        ranks (``parallel/dist_ba``) on rank 0's problem, whose result every
+        rank writes into its own store."""
         self.flush_pending_ba()
         st = self.store
         slots = st.keyframe_slots()
@@ -890,7 +891,7 @@ class Backend:
             self._correct_points_after_pgo(order, R_old, t_old)
         if full_ba:
             with self.timer.span("global_full_ba"):
-                self._full_bundle_adjustment(order)
+                self._full_bundle_adjustment(order, mesh=mesh)
 
     def _apply_loop_scale(self, order: np.ndarray) -> None:
         """Distribute each loop edge's measured inter-leg scale along the
@@ -962,12 +963,12 @@ class Backend:
         Xc = np.einsum("nji,nj->ni", Ro, st.mp_pos[mp_ids] - to_)  # old camera frame (R^T @ .)
         st.mp_pos[mp_ids] = (np.einsum("nij,nj->ni", Rn, Xc) + tn).astype(np.float32)
 
-    def _full_bundle_adjustment(self, order: np.ndarray) -> None:
-        """BA over every keyframe and every good map point, padded to
-        power-of-two buckets of points and observations. Its ``"auto"``
-        assembly is the sorted point reduction once O x P passes 128M."""
+    def _full_ba_selection(self, order: np.ndarray):
+        """The full BA's points and observations: ``(mp_sel, fi, p_idx,
+        uvr)`` (map points; per observation its keyframe's place in
+        ``order``, its point's place in ``mp_sel`` and its keypoint), or None
+        under 16 observations."""
         st = self.store
-        n = len(order)
         mp_ids = np.unique(st.kf_track[order][st.kf_track[order] >= 0])
         mp_ids = mp_ids[st.mp_good[mp_ids] & ~st.mp_bad[mp_ids]]
         sub = st.obs_slot[mp_ids][:, order]
@@ -982,15 +983,44 @@ class Backend:
         pi, fi, uvr = pi[keep_o], fi[keep_o], uvr[keep_o]
         mp_used = np.nonzero(keep_p)[0]
         if len(pi) < 16:
-            return
+            return None
         remap = np.full(len(mp_ids), -1, np.int32)
         remap[mp_used] = np.arange(len(mp_used), dtype=np.int32)
-        p_idx = remap[pi]
-        mp_sel = mp_ids[mp_used]
+        return mp_ids[mp_used], fi, remap[pi], uvr
+
+    def _replicate_full_ba(self, order: np.ndarray, sel, mesh):
+        """Rank 0's full-BA problem on every rank: its keyframe order and
+        selection, and the poses, frame ids and point positions they read,
+        written into this rank's store (equal stores are left as they
+        were)."""
+        st = self.store
+        mp_sel = sel[0] if sel is not None else np.zeros(0, np.int64)
+        order, sel, kf_R, kf_t, kf_id, X = replicate_object(
+            (order, sel, st.kf_R[order], st.kf_t[order], st.kf_frame_id[order], st.mp_pos[mp_sel]), mesh)
+        mp_sel = sel[0] if sel is not None else mp_sel
+        st.kf_R[order], st.kf_t[order], st.kf_frame_id[order], st.mp_pos[mp_sel] = kf_R, kf_t, kf_id, X
+        return order, sel
+
+    def _full_bundle_adjustment(self, order: np.ndarray, mesh=None) -> None:
+        """BA over every keyframe and every good map point, padded to
+        power-of-two buckets of points and observations (multiples of 8
+        a rank). Its ``"auto"`` assembly is the sorted point reduction once
+        O x P passes 128M. On a mesh the problem is rank 0's, sharded by
+        ``shard_problem`` and solved by ``dist_bundle_adjust``; its points
+        come back through ``shard_problem``'s permutation."""
+        st = self.store
+        sel = self._full_ba_selection(order)
+        if mesh is not None:
+            order, sel = self._replicate_full_ba(order, sel, mesh)
+        if sel is None:
+            return
+        mp_sel, fi, p_idx, uvr = sel
+        n = len(order)
+        mult = 8 if mesh is None else 8 * mesh.size()
 
         F = self._round_up(n, 8)
-        P = self._bucket_pow2(len(mp_sel), 8)
-        O = self._bucket_pow2(len(pi), 8)
+        P = self._bucket_pow2(len(mp_sel), mult)
+        O = self._bucket_pow2(len(fi), mult)
 
         def pad(a, m, tail=(), dtype=np.float32):
             out = np.zeros((m,) + tail, dtype)
@@ -1009,7 +1039,7 @@ class Backend:
             obs_frame=pad(fi, O, (), np.int64),
             obs_point=pad(p_idx, O, (), np.int64),
             obs_uv=pad(uvr, O, (3,)),
-            obs_valid=torch.arange(O, device=dev) < len(pi),
+            obs_valid=torch.arange(O, device=dev) < len(fi),
         )
         cam = self.camera
         ba_cfg = BAConfig(
@@ -1023,12 +1053,21 @@ class Backend:
             max_free_frames=F,
             bf16_point_side=self._ba_cfg.bf16_point_side,
         )
-        self.last_full_ba = {
-            "keyframes": n, "points": len(mp_sel), "observations": len(pi), "padded": [F, P, O],
-            "assembly": resolve_assembly(ba_cfg, n_obs=O, n_points=P),
-        }
-        res = bundle_adjust(prob, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, ba_cfg, plain=self._plain)
-        arr = torch.cat([res.R_wc.reshape(-1), res.t_wc.reshape(-1), res.X.reshape(-1)]).cpu().numpy()
+        size = {"keyframes": n, "points": len(mp_sel), "observations": len(fi)}
+        if mesh is None:
+            self.last_full_ba = {**size, "padded": [F, P, O],
+                                 "assembly": resolve_assembly(ba_cfg, n_obs=O, n_points=P)}
+            res = bundle_adjust(prob, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, ba_cfg, plain=self._plain)
+            X = res.X
+        else:
+            w = mesh.size()
+            prob_s, perm = shard_problem(prob, w)
+            O = prob_s.obs_frame.shape[0]
+            self.last_full_ba = {**size, "padded": [F, P, O], "assembly": "dist", "world": w,
+                                 "rank_assembly": gather_objects(shard_assembly(ba_cfg, O // w, P // w), mesh)}
+            res = dist_bundle_adjust(prob_s, mesh, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, ba_cfg)
+            X = torch.empty_like(res.X).index_put_((torch.from_numpy(perm).to(res.X.device),), res.X)
+        arr = torch.cat([res.R_wc.reshape(-1), res.t_wc.reshape(-1), X.reshape(-1)]).cpu().numpy()
         free = ~frame_fixed[:n]
         st.kf_R[order[free]] = arr[: 9 * F].reshape(F, 3, 3)[:n][free]
         st.kf_t[order[free]] = arr[9 * F : 12 * F].reshape(F, 3)[:n][free]
