@@ -4,8 +4,9 @@ kernels, its front end, the whole monocular engine and its long,
 loop-bearing protocol with global optimization, the stereo and RGB-D
 engines with the hybrid matcher, the tracking and map extras
 (local-map tracking, resolution buckets, sub-pixel peaks, patch
-descriptors, map snapshots), several sequences stepped lock-step, and the
-mesh paths (sequences, pairs and a global BA sharded over ranks).
+descriptors, map snapshots), several sequences stepped lock-step, the
+mesh paths (sequences, pairs and a global BA sharded over ranks), and the
+sequence entry points (chunked tracking, the command line).
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -235,6 +236,28 @@ layers, bf16 compute. Phases, each printing one JSON line:
    must launch the stage kernels, attention, Sinkhorn and pose GN, and no
    shard's BA a point-reduce kernel. A rank that fails or outlives its
    deadline fails the phase.
+16. sequence: ``UR_MVO.process_sequence`` with ``runtime.chunk_frames = 4``
+   (``Tracker.process_chunk``: a block's device work queued at once, one
+   readback, the host replaying the rows up to the first keyframe or weak
+   row) on the ``mono/3d`` scenes of seeds 11-13 beside their per-frame
+   runs, deterministic algorithms: the same keyframe frame ids, frames lost
+   and init frame, phase 8's health, each seed's ATE and the means printed
+   beside the per-frame ones (no gate: the chunk path is opt-in), the
+   chunk's rows (queued, consumed, weak, discarded past a cut, cut where
+   the carried pose was read and differed from the host's), host syncs a
+   frame and host ms a frame of both paths (the sync counting on); the stage kernels, attention,
+   Sinkhorn and pose GN must launch inside ``process_chunk``; ``stereo/3d``
+   seed 11 chunked beside its per-frame run (the same keyframes, the
+   keyframes that chunk rows inserted holding the per-frame run's gated
+   right x); then the command line in-process: ``cli.make_synthetic_dataset``
+   writes three 24-frame 240x320 ``3d`` sequences of ``.npy`` frames (the
+   native prefetcher must read them), ``cli.run_vo`` runs one with
+   shipped-matcher discovery and ``--gt``, frame by frame and with
+   ``--chunk 4`` (its ATE line finite and under 0.35, the five main-path
+   kernels launched), ``cli.run_vo_multi`` runs the three with the
+   production operating point as a config (a lane must take >= 3
+   keyframes); all of it under deterministic algorithms, and the host
+   syncs counted with their ten busiest sites.
 
 Then each phase's seconds, the ``kernels`` line (launches from the engine
 run; the sorted reduction's from the long map's ``global_optimize``, the
@@ -242,8 +265,10 @@ unsorted one's from the ``"pallas"`` global BA; times at the global
 shape; ``launches_by_path``: each path's own counts, ``mono/long`` with the
 long map's ``global_optimize``, phase 13's paths, ``local_map_step``
 the local-map steps' own ``pose_gn`` launches, phase 14's
-``multi_seq`` and phase 15's ``mesh/w1``, ``mesh/w2/r0``, ``mesh/w2/r1``:
-each rank's lanes and match), the ``nvidia-smi`` name/power-limit line,
+``multi_seq``, phase 15's ``mesh/w1``, ``mesh/w2/r0``, ``mesh/w2/r1``:
+each rank's lanes and match, and phase 16's ``chunk`` (inside
+``process_chunk``) and ``cli/run_vo``, ``cli/run_vo_chunk``,
+``cli/run_vo_multi``), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
 ``{"phase": ..., "failed": ...}`` line and the run goes on to the next
 phase; at the end any failure makes the exit code 1 and leaves the
@@ -272,7 +297,8 @@ file into one and run it there to take that kernel's digest).
 ``--only-ba`` also runs the long map's ``global_optimize`` and global_ba.
 ``--only-extras`` builds and runs phase 13 alone; ``--only-multi-seq``
 phase 14; ``--only-mesh`` phase 15 (with phase 14's S = 3 run and phase
-9's long map for its references); ``--multi-seq-witness`` phase 14's lanes under the variants of
+9's long map for its references); ``--only-sequence`` phase 16 (with its
+own per-frame runs); ``--multi-seq-witness`` phase 14's lanes under the variants of
 ``multi_seq_witness`` (float32, other samplers, each lane alone, other
 scenes), a per-frame trace a lane.
 ``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
@@ -285,6 +311,7 @@ float32 summands, as the monocular and stereo setups do.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -2652,18 +2679,27 @@ def engine_scene(seed):
 
 def engine_run(vo, seed, scene=None):
     """Reset the engine, feed it one scene, and score the run."""
-    import numpy as np
-
     frames, T_wc = scene or engine_scene(seed)
     vo.reset()
     per_frame, stamps, poses, init_at = run_engine(vo, frames)
+    row, kpos = score_run(vo, seed, T_wc, stamps, poses, init_at)
+    return row, per_frame, kpos
+
+
+def score_run(vo, seed, T_wc, stamps, poses, init_at):
+    """A run's health and accuracy: the keyframes and the frames they were
+    taken at, frames lost, relocalizations, the emitted poses and their ATE
+    (``emitted_ate``), and the keyframe trajectory's ATE; and the keyframe
+    positions."""
+    import numpy as np
+
     n_kf = vo.tracker.backend.store.num_keyframes()
     kf_ate, kts, kpos = keyframe_ate(vo, T_wc) if n_kf >= 3 else (None, [], np.zeros((0, 3)))
     row = {"seed": seed, "initialised_at_frame": init_at, "keyframes": n_kf,
            "keyframe_frame_ids": [int(round(t * FPS)) for t in kts], "frames_lost": vo.tracker.frames_lost,
            "relocalizations": vo.tracker.relocalizations, "poses_emitted": len(poses), "poses_finite": all(np.isfinite(p.matrix()).all() for p in poses),
            "ate": emitted_ate(stamps, poses, T_wc, needs_scale(vo)), "keyframe_ate": kf_ate}
-    return row, per_frame, kpos
+    return row, kpos
 
 
 def production_engine(kernels=True, long_run=False):
@@ -3609,7 +3645,7 @@ def multi_seq_row_check(msvo):
             uvr = torch.cat([kp, -torch.ones((kp.shape[0], 1), dtype=torch.float32, device=kp.device)], dim=1)
             one = fused_track_core(g, lane(matches, i), uvr, snapshots[i], msvo.K_mat, cam.fx, cam.fy, cam.cx,
                                    cam.cy, cam.bf, topt.mono_point, topt.stereo_point, rt.pnp_ransac_iterations,
-                                   rt.pnp_reprojection_threshold, kf.min_num_match, 4.0 * kf.max_distance)
+                                   rt.pnp_reprojection_threshold, kf.min_num_match, 4.0 * kf.max_distance)[0]
             tally["lanes"] += 1
             if not torch.equal(one, out[i]):
                 tally["unequal"].append([tally["calls"], i])
@@ -4302,6 +4338,378 @@ def mesh_phase(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sequence entry points (chunked tracking, the command line)
+# ---------------------------------------------------------------------------
+
+def counted_syncs(fn, sites):
+    """``fn()``'s result; adds to ``sites`` (a Counter) the host syncs it
+    made by the line of Python that made them (every read of a device value
+    on the host: ``torch.cuda.set_sync_debug_mode``'s warnings)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites.update(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                 if "synchronizing" in str(w.message))
+    return out
+
+
+class ChunkLaunches:
+    """The kernel launches made inside ``Tracker.process_chunk`` calls (the
+    chunk path's own), wrapped on this engine."""
+
+    def __init__(self, vo):
+        from ur_mvo_tpu_torch.ops import cuda_ext
+
+        self.counts, tracker, process_chunk = {}, vo.tracker, vo.tracker.process_chunk
+
+        def counted(*a, **k):
+            before = dict(cuda_ext.LAUNCHES)
+            try:
+                return process_chunk(*a, **k)
+            finally:
+                for name, n in cuda_ext.LAUNCHES.items():
+                    self.counts[name] = self.counts.get(name, 0) + n - before.get(name, 0)
+
+        tracker.process_chunk = counted
+
+
+def sequence_run(vo, seed, scene):
+    """Reset the engine and feed it one scene through
+    ``UR_MVO.process_sequence`` (blocks of ``runtime.chunk_frames``),
+    pairing the emitted poses with timestamps as ``run_engine`` does (the
+    frame that initialised is the first that emits); scored as
+    ``engine_run``, with the host seconds of the whole sequence and the
+    tracker's chunk counts."""
+    import torch
+
+    frames, T_wc = scene
+    vo.reset()
+    t0 = time.perf_counter()
+    outs = vo.process_sequence(frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stamps, poses, pending, init_at = [], [], [], None
+    for i, out in enumerate(outs):
+        pending.append(i / FPS)
+        if out:
+            stamps.extend(pending[-len(out):])
+            poses.extend(out)
+            pending.clear()
+            init_at = i if init_at is None else init_at
+    row, _ = score_run(vo, seed, T_wc, stamps, poses, init_at)
+    row["chunk"] = dict(vo.tracker.chunk_stats)
+    return row, seconds
+
+
+def same_keyframes(chunked, per_frame, what):
+    """The chunk path makes the per-frame path's frames bit for bit (a
+    consumed row is the per-frame frame; ``Tracker.process_chunk``), so a
+    chunked run takes the same keyframes and loses the same frames."""
+    for c, p in zip(chunked, per_frame):
+        got = (c["keyframe_frame_ids"], c["frames_lost"], c["initialised_at_frame"])
+        want = (p["keyframe_frame_ids"], p["frames_lost"], p["initialised_at_frame"])
+        if got != want:
+            raise AssertionError(f"sequence ({what}, seed {c['seed']}): chunked keyframes, frames lost, init {got} "
+                                 f"!= per-frame {want}")
+
+
+def cli_datasets(workdir):
+    """``cli.make_synthetic_dataset`` writes the ``mono/3d`` scenes of seeds
+    11-13 (24 frames at 240x320, ``.npy`` frames: the native prefetcher
+    reads them) under ``workdir``; returns their directories."""
+    import contextlib
+    import io
+    import shutil
+
+    from ur_mvo_tpu_torch.cli import make_synthetic_dataset
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    seqs = []
+    for seed in ENGINE_SEEDS:
+        seq = os.path.join(workdir, f"seq{seed}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_synthetic_dataset.main(["--out", seq, "--frames", str(ENGINE_FRAMES), "--size", str(H), str(W),
+                                         "--fx", str(FX), "--scene", "3d", "--seed", str(seed),
+                                         "--image-format", "npy"])
+        seqs.append(seq)
+    return seqs
+
+
+def cli_run_vo(seq, results, extra=()):
+    """``cli.run_vo.main`` in-process on ``seq`` with shipped-matcher
+    discovery and ``--gt``: (its returned summary, its stdout lines, the
+    bytes of ``poses.txt`` and ``keyframes.txt``, the launches, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ur_mvo_tpu_torch.cli import run_vo
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    out = io.StringIO()
+    cuda_ext.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = run_vo.main(["--images", seq, "--gt", os.path.join(seq, "gt.txt"), "--weights", SP_WEIGHTS,
+                               "--results", results, "--stride", "1", *extra])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    files = {}
+    for name in ("poses.txt", "keyframes.txt"):
+        with open(os.path.join(results, name), "rb") as f:
+            files[name] = f.read()
+    return summary, out.getvalue().strip().splitlines(), files, dict(cuda_ext.LAUNCHES), seconds
+
+
+def sequence_cli(smi, workdir):
+    """The command line in-process: ``cli.make_synthetic_dataset`` writes
+    the scenes of seeds 11-13 (``cli_datasets``), and ``cli.run_vo`` runs
+    each with shipped-matcher discovery and ``--gt``, frame by frame and
+    with ``--chunk 4``. Each run must have read its frames with the native
+    prefetcher (as ``run_vo.main`` reports), print a parsable ATE line
+    (finite, under 0.35) and launch the main-path kernels, and each chunked
+    run must write its per-frame run's ``poses.txt`` and ``keyframes.txt``
+    byte for byte and print the same ATE, pose and match counts (a consumed
+    row is the per-frame frame bit for bit: ``Tracker.process_chunk``).
+    Then ``cli.run_vo_multi`` runs the three lock-step with the production
+    operating point as a config (a lane must take >= 3 keyframes). Returns
+    the launches of each (``run_vo``'s of seed 11)."""
+    import contextlib
+    import hashlib
+    import io
+
+    import torch
+
+    from ur_mvo_tpu_torch.cli import run_vo_multi
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    seqs = cli_datasets(workdir)
+    launches, rows, same = {}, {}, {}
+    for seed, seq in zip(ENGINE_SEEDS, seqs):
+        files = {}
+        for name, extra in (("run_vo", []), ("run_vo --chunk 4", ["--chunk", "4"])):
+            where = f"sequence (cli, {name}, seed {seed})"
+            summary, lines, files[name], ran, seconds = cli_run_vo(
+                seq, os.path.join(workdir, f"{name.replace(' ', '_').replace('-', '')}_{seed}"), extra)
+            if seed == ENGINE_SEEDS[0]:
+                launches[name] = ran
+            if summary["reader"] != "native":
+                raise AssertionError(f"{where}: the .npy frames were read by the {summary['reader']} reader")
+            if not lines or not lines[-1].startswith("{"):
+                raise AssertionError(f"{where}: no ATE line (too few poses to match the truth): {lines}")
+            rec = json.loads(lines[-1])
+            rows[f"{name} seed {seed}"] = {**rec, "reader": summary["reader"], "seconds": seconds,
+                                           **{k: hashlib.sha256(v).hexdigest()[:16] for k, v in files[name].items()}}
+            ate = rec["ate_rmse_m"]
+            if not (ate == ate and 0.0 <= ate < 0.35):
+                raise AssertionError(f"{where}: ATE {ate} (finite, < 0.35)")
+            missing = [k for k in ENGINE_KERNELS if ran.get(k, 0) == 0]
+            if missing:
+                raise AssertionError(f"{where}: kernels never launched: {missing}")
+        pf, ch = rows[f"run_vo seed {seed}"], rows[f"run_vo --chunk 4 seed {seed}"]
+        same[seed] = {k: pf[k] == ch[k] for k in ("ate_rmse_m", "n_poses", "n_gt_matched")}
+        same[seed].update({k: files["run_vo"][k] == files["run_vo --chunk 4"][k] for k in files["run_vo"]})
+    # run_vo_multi discovers no matcher: the production operating point as a config
+    cfg = os.path.join(workdir, "multi.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"superpoint: {{weights_path: {SP_WEIGHTS}, keypoint_threshold: 1.0e-4, capacity: 1024, "
+                f"max_keypoints: 1000}}\nsuperglue: {{weights_path: {SG_WEIGHTS}, nn_fallback_min_matches_init: 40}}\n"
+                "initializer: {min_matches: 60, min_features_first: 100}\nbackend: {relocalization: true}\n")
+    out = io.StringIO()
+    cuda_ext.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run_vo_multi.main(["--images", *seqs, "--gt", *(os.path.join(q, "gt.txt") for q in seqs),
+                           "--results", os.path.join(workdir, "multi"), "--config", cfg])
+    torch.cuda.synchronize()
+    launches["run_vo_multi"] = dict(cuda_ext.LAUNCHES)
+    rows["run_vo_multi"] = {"lanes": [json.loads(line) for line in out.getvalue().strip().splitlines()],
+                            "seconds": time.perf_counter() - t0}
+    lanes = rows["run_vo_multi"]["lanes"]
+    if len(lanes) != len(seqs) or max(r["n_keyframes"] for r in lanes) < MIN_KEYFRAMES:
+        raise AssertionError(f"sequence (cli, run_vo_multi): no lane took {MIN_KEYFRAMES} keyframes: {lanes}")
+    emit({"phase": "sequence", "part": "cli", "runs": rows, "chunked_equals_per_frame": same, "launches": launches,
+          "card": smi})
+    if not all(all(v.values()) for v in same.values()):
+        raise AssertionError(f"sequence (cli): run_vo --chunk 4 differs from the per-frame run: {same}")
+    return launches
+
+
+def sequence_witness(smi):
+    """``--sequence-witness``: whether the command line repeats itself on
+    the card. The frames ``cli_datasets`` writes for seed 11, as the native
+    and the Python readers return them, against the scene ``engine_scene``
+    renders; then ``cli_run_vo`` frame by frame and with ``--chunk 4``,
+    twice each, under deterministic algorithms and without (the digests of
+    ``poses.txt`` and ``keyframes.txt`` and the ATE line of each run); and
+    the engine's own per-frame run of the scene beside them."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.dataset import Dataset
+
+    workdir = os.path.join(REPO, "build", "sequence_witness")
+    seqs = cli_datasets(workdir)
+    frames, T_wc = engine_scene(ENGINE_SEEDS[0])
+    want = [f.image.get_image() for f in frames]
+    images = {}
+    for reader, prefetch in (("native", True), ("python", False)):
+        ds = Dataset(seqs[0], prefetch=prefetch)
+        got = [d.image for d in ds]
+        images[reader] = {"reader": ds.reader, "equal": len(got) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(got, want))}
+    runs = []
+    for deterministic in (True, False):
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        for rep in range(2):
+            for name, extra in (("per_frame", []), ("chunk_4", ["--chunk", "4"])):
+                summary, lines, files, _, seconds = cli_run_vo(
+                    seqs[0], os.path.join(workdir, f"{name}_{deterministic}_{rep}"), extra)
+                runs.append({"deterministic": deterministic, "rep": rep, "run": name, "reader": summary["reader"],
+                             "line": lines[-1] if lines else None, "keyframes": files["keyframes.txt"].count(b"\n"),
+                             **{k: hashlib.sha256(v).hexdigest()[:16] for k, v in files.items()}})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    vo = production_engine()
+    row, _, _ = engine_run(vo, ENGINE_SEEDS[0], (frames, T_wc))
+    vo.shutdown()
+    torch.use_deterministic_algorithms(False)
+    emit({"phase": "sequence_witness", "images": images, "runs": runs, "engine": row, "card": smi})
+
+
+def sequence_phase(smi):
+    """Phase 16, deterministic algorithms throughout: ``UR_MVO.process_sequence``
+    with ``runtime.chunk_frames = 4`` on the ``mono/3d`` scenes of seeds 11-13
+    beside their per-frame runs (phase 8's rows where it ran): the same
+    keyframes and frames lost, phase 8's health, each seed's ATE and the
+    means printed (not held to the 0.15 gate: the chunk path is opt-in),
+    the chunk's rows (queued, consumed, weak, cut where the carried pose
+    was read and differed), host syncs a frame and host ms a frame of both
+    paths, and the five main-path kernels launched inside
+    ``Tracker.process_chunk``; ``stereo/3d`` seed 11 chunked beside its
+    per-frame run (the same keyframes, ``u_right`` kept at the keyframes
+    chunk rows inserted); then the command line (``sequence_cli``).
+    Returns the launches by path (``chunk``: the chunk path's own)."""
+    import torch
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    t_start = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    engines = []  # shut down (again: it is idempotent), and deterministic algorithms off, on a failure too
+    try:
+        scenes = {seed: engine_scene(seed) for seed in ENGINE_SEEDS}
+        vo = production_engine()
+        engines.append(vo)
+        probe = ChunkLaunches(vo)
+
+        # --- the per-frame references (phase 8's runs where it ran) -----------
+        per_frame, syncs_pf, wall_pf = {}, collections.Counter(), 0.0
+        for seed in ENGINE_SEEDS:
+            per_frame[seed], ms, _ = counted_syncs(lambda s=seed: engine_run(vo, s, scenes[s]), syncs_pf)
+            wall_pf += sum(ms) / 1e3
+        if SINGLE_STREAM_ROWS and [r["keyframe_frame_ids"] for r in SINGLE_STREAM_ROWS] != [
+                per_frame[s]["keyframe_frame_ids"] for s in ENGINE_SEEDS]:
+            raise AssertionError("sequence: the per-frame runs here differ from phase 8's")
+
+        # --- chunked, launches counted ----------------------------------------
+        vo.config.runtime.chunk_frames = 4
+        cuda_ext.LAUNCHES.clear()
+        chunked, syncs_ch, wall_ch = {}, collections.Counter(), 0.0
+        for seed in ENGINE_SEEDS:
+            chunked[seed], seconds = counted_syncs(lambda s=seed: sequence_run(vo, s, scenes[s]), syncs_ch)
+            wall_ch += seconds
+        launches = dict(cuda_ext.LAUNCHES)
+        n_frames = ENGINE_FRAMES * len(ENGINE_SEEDS)
+        rows_c, rows_p = [chunked[s] for s in ENGINE_SEEDS], [per_frame[s] for s in ENGINE_SEEDS]
+        stats = {k: sum(r["chunk"][k] for r in rows_c) for k in rows_c[0]["chunk"]}
+        stats["discarded"] = stats["rows"] - stats["consumed"] - stats["weak"]
+
+        def mean(rows):
+            return statistics.mean(r["ate"] if r["ate"] is not None else float("nan") for r in rows)
+
+        emit({"phase": "sequence", "part": "mono/3d", "chunk_frames": 4, "runs": rows_c,
+              "ate": {"chunked": [r["ate"] for r in rows_c], "per_frame": [r["ate"] for r in rows_p],
+                      "mean_chunked": mean(rows_c), "mean_per_frame": mean(rows_p)},
+              "rows": stats,
+              "syncs_a_frame": {"chunked": sum(syncs_ch.values()) / n_frames, "per_frame": sum(syncs_pf.values()) / n_frames},
+              "sync_sites_a_frame": {"chunked": [[k, n / n_frames] for k, n in syncs_ch.most_common(10)],
+                                     "per_frame": [[k, n / n_frames] for k, n in syncs_pf.most_common(10)]},
+              # the sync counting is on in these runs
+              "host_ms_a_frame": {"chunked": 1e3 * wall_ch / n_frames, "per_frame": 1e3 * wall_pf / n_frames},
+              "launches": launches, "chunk_launches": probe.counts, "card": smi})
+        same_keyframes(rows_c, rows_p, "mono/3d")
+        for r in rows_c:
+            where = f"sequence (mono/3d, seed {r['seed']})"
+            if r["initialised_at_frame"] is None or r["keyframes"] < MIN_KEYFRAMES or r["frames_lost"] > MAX_FRAMES_LOST:
+                raise AssertionError(f"{where}: init {r['initialised_at_frame']}, {r['keyframes']} keyframes, "
+                                     f"{r['frames_lost']} frames lost")
+        if stats["consumed"] == 0:
+            raise AssertionError(f"sequence (mono/3d): the chunk path consumed no row: {stats}")
+        missing = [k for k in ENGINE_KERNELS if probe.counts.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"sequence: kernels never launched inside process_chunk: {missing}")
+        vo.shutdown()
+
+        # --- stereo/3d seed 11 ------------------------------------------------
+        seed = ENGINE_SEEDS[0]
+        scene = metric_scene("stereo/3d", seed)
+        stereo = metric_engine("stereo/3d")
+        engines.append(stereo)
+        ref, _, _ = engine_run(stereo, seed, scene)
+        ref_uright = stereo_columns(stereo)
+        stereo.config.runtime.chunk_frames = 4
+        inserted = []
+        process_chunk = stereo.tracker.process_chunk
+
+        def noting(*a, **k):
+            st = stereo.tracker.backend.store
+            before = set(st.kf_frame_id[st.keyframe_slots()].tolist())
+            out = process_chunk(*a, **k)
+            inserted.extend(int(f) for f in st.kf_frame_id[st.keyframe_slots()] if int(f) not in before)
+            return out
+
+        stereo.tracker.process_chunk = noting
+        row, _ = sequence_run(stereo, seed, scene)
+        uright = stereo_columns(stereo)
+        emit({"phase": "sequence", "part": "stereo/3d", "seed": seed, "chunked": row, "per_frame": ref,
+              "inserted_by_chunk_rows": inserted, "u_right_rows": {"chunked": uright, "per_frame": ref_uright},
+              "card": smi})
+        same_keyframes([row], [ref], "stereo/3d")
+        unseeded = [f for f in inserted if uright.get(f, 0) == 0 or uright[f] != ref_uright.get(f)]
+        if not inserted or unseeded:
+            raise AssertionError(f"sequence (stereo/3d): keyframes inserted by chunk rows {inserted}, "
+                                 f"u_right rows {uright} against per-frame {ref_uright}")
+        stereo.shutdown()
+
+        cli = sequence_cli(smi, os.path.join(REPO, "build", "sequence"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for engine in engines:
+            engine.shutdown()
+    emit({"phase": "sequence", "seconds": time.perf_counter() - t_start})
+    return {"chunk": probe.counts, "cli/run_vo": cli["run_vo"], "cli/run_vo_chunk": cli["run_vo --chunk 4"],
+            "cli/run_vo_multi": cli["run_vo_multi"]}
+
+
+def stereo_columns(vo):
+    """Per keyframe (by frame id), the rows of its keypoints that hold a
+    gated right x (``u_right > 0``): the stereo seeds."""
+    st = vo.tracker.backend.store
+    return {int(st.kf_frame_id[s]): int((st.kf_kpts[s, :, 2] > 0).sum()) for s in st.keyframe_slots()}
+
+
 def main() -> int:
     import torch
 
@@ -4446,6 +4854,19 @@ def main() -> int:
             return 1
         print(smi, flush=True)
         return 0
+    if "--sequence-witness" in sys.argv:
+        sequence_witness(smi)
+        print(smi, flush=True)
+        return 0
+    if "--only-sequence" in sys.argv:
+        try:
+            sequence_phase(smi)
+        except AssertionError as e:
+            emit({"phase": "sequence", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
     if "--only-ba" in sys.argv:
         torch.use_deterministic_algorithms(True, warn_only=True)
         _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
@@ -4489,8 +4910,9 @@ def main() -> int:
     # before phase 15, which compares with its solution
     point_reduce = timed("global_ba", global_ba_phase, smi, on_failure={}).get("point_reduce", 0)
     mesh_launches = timed("mesh", mesh_phase, smi, on_failure={})
+    sequence_launches = timed("sequence", sequence_phase, smi, on_failure={})
     by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches, **extras_launches,
-               **multi_seq_launches, **mesh_launches}
+               **multi_seq_launches, **mesh_launches, **sequence_launches}
     rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
     # the sorted kernel's launches are those of global_optimize's full BA;
     # the unsorted kernel runs only where "pallas" is asked for

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_chunk_util
 from tests.synthetic import make_camera, make_landmarks, make_trajectory
 from ur_mvo_tpu import components as jcomp
 from ur_mvo_tpu import config as jconfig
@@ -222,9 +223,12 @@ def test_what_the_slice_leaves_out_raises():
     # reading them
     bank = oracle.extract_with_pose(np.eye(4, dtype=np.float32))
     assert vo.tracker.process(bank, 0.0, precomputed_match=object()) is None
-    # what is left out still raises
-    with pytest.raises(NotImplementedError):
-        vo.tracker.process_chunk([], [])
+    # chunked processing is ported: an initialized tracker on a fused
+    # extractor tracks a block of frames with one readback
+    vo, _ = torch_chunk_util.engine(10, 64, 60)
+    vo.process_sequence([torch_chunk_util.frame(i) for i in range(7)])
+    imgs = np.stack([torch_chunk_util.frame(i).image.get_image() for i in (7, 8)])
+    assert vo.tracker.process_chunk(imgs, [7 / 30.0, 8 / 30.0]) == ([None, None], 2, None)
 
 
 def test_engine_tracker_backend_default_to_cuda():

@@ -274,7 +274,7 @@ def test_defaults_keep_their_bits():
 
     def keep(*args, **kw):
         out = step(*args, **kw)
-        packed.append(out.numpy().copy())
+        packed.append(out[0].numpy().copy())
         return out
 
     vo.tracker._fused_kernel = keep

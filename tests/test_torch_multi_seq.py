@@ -260,7 +260,7 @@ def test_batched_track_matches_jax_and_single_lanes(both_vo):
         one = fused_track_core(None, lane(tmatch, i), uvr, torch.from_numpy(snaps[i]), tm.K_mat,
                                cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, topt.mono_point, topt.stereo_point,
                                rt.pnp_ransac_iterations, rt.pnp_reprojection_threshold, kf.min_num_match,
-                               4.0 * kf.max_distance, pnp_sets=sets[i]).numpy()
+                               4.0 * kf.max_distance, pnp_sets=sets[i])[0].numpy()
         np.testing.assert_array_equal(out[i], one)
 
 

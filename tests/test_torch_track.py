@@ -350,7 +350,7 @@ def _run_fused_both(snap, idx1, mvalid, uvr, seed=0):
     valid_cur[idx1[src_ok]] = True
     sets = np.asarray(jransac.sample_minimal_sets(key, jnp.asarray(valid_cur), 100, 6))
     tm = tweights.matches_from_numpy((idx1, mvalid.astype(np.float32), mvalid))
-    out = fused_track_core(None, tm, T(uvr), T(snap), T(KMAT_F), *FUSED_ARGS, pnp_sets=T(sets, torch.int64)).numpy()
+    out = fused_track_core(None, tm, T(uvr), T(snap), T(KMAT_F), *FUSED_ARGS, pnp_sets=T(sets, torch.int64))[0].numpy()
     return ref, out
 
 
@@ -433,3 +433,59 @@ def test_fused_track_core_dump_row_takes_duplicate_writes():
     expect[idx1[mvalid]] = (np.arange(KF) + 100)[mvalid]
     np.testing.assert_array_equal(track, expect)
     np.testing.assert_allclose(t_wc, t_true, atol=2e-2)
+
+
+def test_chunk_rows_hold_to_jax_fused_track_core(monkeypatch):
+    """``Tracker.process_chunk``'s rows against the JAX package's fused
+    step: the oracle chunk of ``tests/torch_chunk_util.py`` (K = 64, the
+    camera and parameters of ``FUSED_ARGS``, blocks of 4) records each
+    queued row's matches, uvr and snapshot (the carried last pose in its
+    last column), and both packages' steps run on them with JAX's minimal
+    sets for one key, at this file's fused-step tolerances. On every
+    consumed row the JAX chunk's keyframe predicate
+    (``ur_mvo_tpu/runtime/frontend.py:515-531``, in numpy against the last
+    keyframe's pose and the frames passed) equals the port's decision: the
+    chunk cuts where it inserted a keyframe."""
+    from tests import torch_chunk_util as U
+    from ur_mvo_tpu_torch.runtime import frontend
+
+    vo, _ = U.engine(12, KF, 60, chunk=4)
+    tr, kf = vo.tracker, vo.config.keyframe
+    assert (tr.camera.fx, tr.camera.cx, KF) == (FXF, WF / 2, vo.config.superpoint.capacity)
+    chunks, queued = [], []
+    core, process_chunk = frontend.fused_track_core, tr.process_chunk
+
+    def spy_core(gen, m, uvr, snap, *a, **k):
+        queued.append((m.idx1.numpy().copy(), m.valid.numpy().copy(), uvr.numpy().copy(), snap.numpy().copy()))
+        return core(gen, m, uvr, snap, *a, **k)
+
+    def spy_chunk(*a, **k):
+        start = (tr._last_keyframe_pose.copy(), tr._frame_counter - tr._last_keyframe_frame_id, len(queued))
+        out = process_chunk(*a, **k)
+        chunks.append((start, out[0]))
+        return out
+
+    monkeypatch.setattr(frontend, "fused_track_core", spy_core)
+    tr.process_chunk = spy_chunk
+    vo.process_sequence([U.frame(i) for i in range(12)])
+    assert tr.chunk_stats["consumed"] >= 4 and len(chunks) >= 2
+    n_rows = n_kf = 0
+    for (kfp, passed0, first), results in chunks:
+        for j, pose_out in enumerate(results):
+            idx1, mvalid, uvr, snap = queued[first + j]
+            ref, out = _run_fused_both(snap, idx1, mvalid, uvr, seed=first + j)
+            assert out[0] == ref[0] and out[1] == ref[1]
+            np.testing.assert_allclose(out[2:11], ref[2:11], atol=2e-5)
+            np.testing.assert_allclose(out[11:14], ref[11:14], atol=2e-4)
+            assert (out[14 : 14 + KF] == ref[14 : 14 + KF]).mean() >= 0.99
+            np.testing.assert_array_equal(out[14 + KF :], ref[14 + KF :])
+            # the JAX chunk's predicate on the JAX row
+            n_inl, R_cw = ref[1], ref[2:11].reshape(3, 3)
+            t_wc = -R_cw.T @ ref[11:14]
+            ang = np.arccos(np.clip((np.trace(kfp[:3, :3].T @ R_cw.T) - 1.0) * 0.5, -1.0, 1.0))
+            is_kf = (ref[0] >= kf.min_num_match) & (n_inl >= kf.min_num_match) & (
+                (n_inl < kf.max_num_match) | (ang > kf.max_angle) | (np.linalg.norm(t_wc - kfp[:3, 3]) > kf.max_distance)
+                | (passed0 + j >= kf.max_num_passed_frame))
+            assert bool(is_kf) == (pose_out is not None), (first + j, is_kf)
+            n_rows, n_kf = n_rows + 1, n_kf + bool(is_kf)
+    assert n_rows >= 4 and n_kf >= 1

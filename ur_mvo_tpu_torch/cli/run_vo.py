@@ -1,0 +1,332 @@
+"""VO from the command line: run a sequence directory, write a TUM
+trajectory, evaluate ATE (the port of ``scripts/run_vo.py``).
+
+Reads a sorted image directory (``dataset.Dataset``: EuRoC layout or a flat
+folder; the native prefetcher where the frames are PGM or uint8 ``.npy``),
+feeds ``UR_MVO.process`` with the next frame prefetched, or
+``UR_MVO.process_sequence`` in blocks with ``--chunk N``, writes every Nth
+pose to ``poses.txt`` (the Aqualoc ground-truth rate is every 5 frames),
+the keyframes to ``keyframes.txt``, and with ``--gt`` prints the ATE (Umeyama
+alignment with scale correction) as the last line, one JSON object
+``{"ate_rmse_m", "fps", "n_poses", "n_gt_matched"}``.
+
+Usage:
+  python -m ur_mvo_tpu_torch.cli.run_vo --images <seq_dir> [--config cfg.yaml]
+      [--setup mono|stereo|rgbd] [--gt gt.txt|images.txt]
+      [--results out_dir] [--stride 5] [--device cuda|cpu] [--chunk N]
+
+``--device`` defaults to ``cuda`` and raises without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+REPO = Path(__file__).resolve().parents[2]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the command line ``argv``; returns what the run did: the
+    dataset's ``reader`` ("native" or "python"), ``frames``, ``n_poses``
+    and, with ``--gt`` and enough matched poses, the ATE line's fields."""
+    ap = argparse.ArgumentParser(prog="python -m ur_mvo_tpu_torch.cli.run_vo")
+    ap.add_argument("--images", required=True, help="sequence root (EuRoC layout: cam0/data)")
+    ap.add_argument("--config", default=None, help="YAML config (reference format)")
+    ap.add_argument("--setup", default="mono", choices=["mono", "stereo", "rgbd"])
+    ap.add_argument("--gt", default=None, help="ground truth (TUM txt or colmap images.txt)")
+    ap.add_argument("--results", default="results")
+    ap.add_argument("--stride", type=int, default=5, help="pose subsampling for poses.txt")
+    ap.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain versions)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the run into DIR/trace.json (chrome://tracing, Perfetto)")
+    ap.add_argument("--timing-csv", default=None, help="write per-stage host timing CSV")
+    ap.add_argument("--plot", default=None, metavar="PNG",
+                    help="save a top-down trajectory + map plot (matplotlib)")
+    ap.add_argument("--save-map", default=None, metavar="PLY",
+                    help="dump the triangulated map cloud as ASCII PLY")
+    ap.add_argument("--save-snapshot", default=None, metavar="NPZ",
+                    help="persist the full map state after the run (resume/localization)")
+    ap.add_argument("--load-snapshot", default=None, metavar="NPZ",
+                    help="load a saved map and start in localization mode "
+                         "(relocalize into it instead of initializing a fresh map)")
+    ap.add_argument("--weights", default=None,
+                    help="SuperPoint checkpoint (.npz/.pth); overrides the config's superpoint.weights_path")
+    ap.add_argument("--matcher", default=None, choices=["auto", "superglue", "nn"],
+                    help="matcher override (nn = mutual nearest-neighbor, no learned weights needed)")
+    ap.add_argument("--kpt-threshold", type=float, default=None,
+                    help="detector score threshold override (the shipped from-scratch "
+                         "checkpoints peak lower than the public SuperPoint: use 1e-4)")
+    ap.add_argument("--sg-weights", default=None,
+                    help="SuperGlue checkpoint (.npz/.pth); overrides superglue.weights_path")
+    ap.add_argument("--masks", action="store_true",
+                    help="feed semantic masks from <seq>/mask0/data (nonzero keeps a "
+                         "pixel; the reference's processMonoWithMask path)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="queue N frames' device work with one readback (Tracker.process_chunk, "
+                         "cut at the first keyframe or weak frame; neural path). 0/1 = per-frame")
+    ap.add_argument("--loop-closure", action="store_true",
+                    help="enable online loop detection (Backend.detect_loop); verified "
+                         "edges are consumed by the final --global-ba pose graph")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="run global pose-graph optimization + full BA over all "
+                         "keyframes after the sequence (Backend.global_optimize)")
+    ap.add_argument("--reloc", action="store_true",
+                    help="relocalize after tracking loss: re-anchor into the "
+                         "existing map via retrieval + PnP (Backend.relocalize)")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.components import DepthMap, Frame, Image, Mask, Setup
+    from ur_mvo_tpu_torch.config import Configs
+    from ur_mvo_tpu_torch.dataset import Dataset, load_colmap_images_txt
+    from ur_mvo_tpu_torch.engine import UR_MVO
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+    from ur_mvo_tpu_torch.utils.tum_io import associate, read_tum, write_tum
+
+    setup = {"mono": Setup.MONO, "stereo": Setup.STEREO, "rgbd": Setup.RGBD}[args.setup]
+
+    cfg = Configs.from_yaml(args.config, setup) if args.config else Configs()
+    if args.weights:
+        cfg.superpoint.weights_path = args.weights
+    if args.matcher:
+        cfg.superglue.matcher = args.matcher
+    if args.kpt_threshold is not None:
+        cfg.superpoint.keypoint_threshold = args.kpt_threshold
+    if args.sg_weights:
+        cfg.superglue.weights_path = args.sg_weights
+    # shipped-matcher discovery: the repo's SuperGlue checkpoint is trained
+    # against the v3 detector's descriptor space, so it is the default
+    # matcher exactly when that detector is in use. It fires on the default
+    # path for every sensor setup (no --config: a config file states its
+    # own matcher) and adopts the checkpoint's embedded operating point.
+    # Mono runs SuperGlue; stereo and RGB-D run "hybrid" (mutual-NN
+    # primary, SuperGlue's matches where NN starves), the JAX package's
+    # policy as written.
+    shipped_sg = str(REPO / "weights" / "superglue_v3scene.npz")
+    if (
+        args.config is None
+        and cfg.superglue.matcher != "nn"
+        and cfg.superglue.weights_path is None
+        and cfg.superpoint.weights_path
+        and "superpoint_scratch_v3" in os.path.basename(cfg.superpoint.weights_path)
+        and os.path.exists(shipped_sg)
+    ):
+        from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point, resolve_matching_threshold
+
+        cfg.superglue.weights_path = shipped_sg
+        if args.setup != "mono" and cfg.superglue.matcher == "auto":
+            # explicit --matcher superglue/hybrid wins over the policy
+            cfg.superglue.matcher = "hybrid"
+        op = checkpoint_operating_point(shipped_sg) or {}
+        for k in ("capacity", "max_keypoints"):
+            if k in op:
+                setattr(cfg.superpoint, k, op[k])
+        if "keypoint_threshold" in op and args.kpt_threshold is None:
+            cfg.superpoint.keypoint_threshold = op["keypoint_threshold"]
+        for k in ("min_matches", "min_features_first"):
+            if k in op:
+                setattr(cfg.initializer, k, op[k])
+        # relocalization re-anchors after a loss, and the init-only NN
+        # floor rescues two-view init attempts where the learned matcher
+        # leaves too few matches above its threshold (a floor on tracking
+        # frames too would cost accuracy inside the matcher's envelope)
+        cfg.backend.relocalization = True
+        if cfg.superglue.nn_fallback_min_matches_init == 0:
+            cfg.superglue.nn_fallback_min_matches_init = 40
+        print(f"using shipped SuperGlue matcher: {shipped_sg} "
+              f"(threshold {resolve_matching_threshold(cfg.superglue)}, "
+              f"operating point {op}, reloc+nn-floor on; "
+              f"pass --matcher nn or --sg-weights to override)",
+              file=sys.stderr)
+    # dataset-local calibration (written by cli.make_synthetic_dataset)
+    seq_cam = os.path.join(args.images, "camera.yaml")
+    if cfg.camera_config_path is None and os.path.exists(seq_cam):
+        cfg.camera_config_path = seq_cam
+    # beyond ~2x 320x240 pixels the v3 descriptors' matching can collapse
+    # mid-sequence on repetitive texture: the tracking-time NN floor is
+    # engaged there too, which keeps the recovery ladder alive
+    if (cfg.superglue.weights_path and cfg.superglue.matcher != "nn"
+            and cfg.superglue.nn_fallback_min_matches == 0
+            and cfg.camera_config_path and os.path.exists(cfg.camera_config_path)):
+        from ur_mvo_tpu_torch.camera import Camera
+
+        c = Camera.from_yaml(cfg.camera_config_path)
+        if c.width * c.height > 2 * 320 * 240:
+            cfg.superglue.nn_fallback_min_matches = 40
+            print(f"high-resolution input ({c.width}x{c.height}): tracking-time "
+                  "NN min-match floor engaged (matcher envelope guard)",
+                  file=sys.stderr)
+    if args.loop_closure:
+        cfg.backend.loop_closure = True
+    if args.reloc:
+        cfg.backend.relocalization = True
+    if args.chunk and args.chunk > 1:
+        cfg.runtime.chunk_frames = args.chunk
+    vo = UR_MVO(cfg, setup, device=args.device)
+    if args.load_snapshot:
+        vo.load_map_snapshot(args.load_snapshot)
+        print(f"localization mode: loaded map snapshot {args.load_snapshot} "
+              f"({vo.tracker.backend.store.num_keyframes()} keyframes)", file=sys.stderr)
+    ds = Dataset(args.images, use_right=(setup == Setup.STEREO), use_depth=(setup == Setup.RGBD),
+                 use_mask=args.masks)
+    os.makedirs(args.results, exist_ok=True)
+
+    all_ts, all_pos, all_quat = [], [], []
+    profile_ctx = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if vo.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profile_ctx = torch.profiler.profile(activities=activities)
+        profile_ctx.__enter__()
+
+    def to_frame(data):
+        frame = Frame(image=Image(data.image, data.time))
+        if data.image_right is not None:
+            frame.right_image = Image(data.image_right, data.time)
+        if data.depth is not None:
+            frame.depth_map = DepthMap(data.depth)
+        if data.mask is not None:
+            frame.mask = Mask(data.mask)
+        return frame
+
+    def emit(poses, pending_ts):
+        """Pair returned poses with the frames they belong to: process()
+        emits one pose per frame since the last emission (SLERP-filled
+        accumulated frames + the keyframe), so the LAST len(poses)
+        pending timestamps are theirs — writing them all at the keyframe
+        time floors the ATE at the intra-keyframe motion (~0.2 m on the
+        synthetic sets) regardless of estimate quality."""
+        # one pose per pending frame at most — a pose/timestamp
+        # misalignment must fail loudly, not be hidden by zip truncation
+        assert len(poses) <= len(pending_ts), (len(poses), len(pending_ts))
+        for ts_k, p in zip(pending_ts[-len(poses):], poses):
+            all_ts.append(ts_k)
+            all_pos.append(p.translation)
+            all_quat.append(p.quaternion)
+        pending_ts.clear()
+
+    t0 = time.perf_counter()
+    pending_ts = []
+    if args.chunk and args.chunk > 1:
+        # chunked: blocks of frames through UR_MVO.process_sequence, one
+        # readback a chunk (per-frame around init, masks and weak-tracking
+        # recoveries)
+        block = []
+
+        def flush_block():
+            outs = vo.process_sequence([f for f, _ in block])
+            for (f, ts_i), out in zip(block, outs):
+                pending_ts.append(ts_i)
+                if out:
+                    emit(out, pending_ts)
+            block.clear()
+
+        for data in ds:
+            block.append((to_frame(data), data.time))
+            if len(block) >= args.chunk * 8:
+                flush_block()
+        if block:
+            flush_block()
+    else:
+        # one-frame lookahead: the engine queues frame i+1's extraction
+        # before frame i's tracking and host work, overlapping device
+        # inference with host bookkeeping
+        prev = None  # (frame, time)
+        for data in ds:
+            frame = to_frame(data)
+            if prev is not None:
+                pending_ts.append(prev[1])
+                poses = vo.process(prev[0], next_data=frame)
+                if poses:
+                    emit(poses, pending_ts)
+            prev = (frame, data.time)
+        if prev is not None:
+            pending_ts.append(prev[1])
+            poses = vo.process(prev[0])
+            if poses:
+                emit(poses, pending_ts)
+    if vo.device.type == "cuda":
+        torch.cuda.synchronize(vo.device)
+    elapsed = time.perf_counter() - t0
+    if profile_ctx:
+        profile_ctx.__exit__(None, None, None)
+        os.makedirs(args.profile, exist_ok=True)
+        profile_ctx.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"profile -> {os.path.join(args.profile, 'trace.json')}", file=sys.stderr)
+    if args.timing_csv:
+        vo.tracker.timer.write_csv(args.timing_csv)
+    fps = len(ds) / max(elapsed, 1e-9)
+
+    # every-Nth subsampling like the reference eval
+    pose_path = os.path.join(args.results, "poses.txt")
+    idx = np.arange(0, len(all_ts), args.stride)
+    write_tum(pose_path, [all_ts[i] for i in idx], np.asarray(all_pos)[idx], np.asarray(all_quat)[idx])
+    if args.global_ba:
+        n_loops = len(vo.tracker.backend.store.loop_edges)
+        vo.tracker.backend.global_optimize()
+        print(f"global BA over {vo.tracker.backend.store.num_keyframes()} keyframes "
+              f"({n_loops} loop edges)", file=sys.stderr)
+    vo.save_trajectory(os.path.join(args.results, "keyframes.txt"))
+    if args.save_map:
+        vo.save_map_ply(args.save_map)
+        print(f"map cloud -> {args.save_map}", file=sys.stderr)
+    if args.save_snapshot:
+        vo.save_map_snapshot(args.save_snapshot)
+        print(f"map snapshot -> {args.save_snapshot}", file=sys.stderr)
+    print(f"processed {len(ds)} frames in {elapsed:.1f}s ({fps:.1f} fps); "
+          f"{len(all_ts)} poses -> {pose_path}", file=sys.stderr)
+    summary = {"reader": ds.reader, "frames": len(ds), "n_poses": len(all_ts)}
+
+    if args.plot:
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            st = vo.tracker.backend.store
+            _, kt, _ = vo.keyframe_trajectory()  # keyframe positions
+            good = st.mp_good & ~st.mp_bad
+            mp = st.mp_pos[good]
+            fig, axp = plt.subplots(figsize=(7, 7))
+            if len(mp):
+                axp.scatter(mp[:, 0], mp[:, 2], s=1, c="#999999", label=f"map ({len(mp)} pts)")
+            if len(kt):
+                axp.plot(kt[:, 0], kt[:, 2], "b.-", lw=1.5, label=f"keyframes ({len(kt)})")
+            axp.set_xlabel("x [m]")
+            axp.set_ylabel("z [m]")
+            axp.set_aspect("equal", adjustable="datalim")
+            axp.legend()
+            fig.savefig(args.plot, dpi=120, bbox_inches="tight")
+            print(f"plot -> {args.plot}", file=sys.stderr)
+        except Exception as e:  # plotting must never fail the run
+            print(f"plot failed: {e}", file=sys.stderr)
+
+    if args.gt:
+        if args.gt.endswith("images.txt"):
+            gt_ts, gt_pos, _ = load_colmap_images_txt(args.gt)
+        else:
+            gt_ts, gt_pos, _ = read_tum(args.gt)
+        est_ts = np.asarray([all_ts[i] for i in idx])
+        est_pos = np.asarray(all_pos)[idx]
+        ia, ib = associate(est_ts, gt_ts, max_diff=0.1)
+        if len(ia) < 3:
+            print("WARNING: too few GT associations", file=sys.stderr)
+        else:
+            ate = ate_rmse(est_pos[ia], gt_pos[ib], align=True, correct_scale=True)
+            summary.update(ate_rmse_m=round(float(ate), 5), fps=round(fps, 2), n_gt_matched=len(ia))
+            print(json.dumps({k: summary[k] for k in ("ate_rmse_m", "fps", "n_poses", "n_gt_matched")}))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

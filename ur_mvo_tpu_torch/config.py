@@ -243,11 +243,11 @@ class RuntimeConfig:
     seed: int = 0
     pnp_ransac_iterations: int = 100
     pnp_reprojection_threshold: float = 20.0
-    # Multi-frame chunk scan: >1 processes this many frames per device
-    # program (lax.scan over extract+match+track with on-device keyframe
-    # rollover) — one dispatch + one packed readback per chunk instead of
-    # per frame. 0/1 = per-frame fused step. Mono/RGB-D neural path only;
-    # engine.process_sequence falls back per-frame elsewhere.
+    # Multi-frame chunks: >1 queues this many frames' extract + match +
+    # track at once with one packed readback (Tracker.process_chunk), cut
+    # at the first keyframe or weak row. 0/1 = per-frame fused step. Mono,
+    # stereo and RGB-D neural path; engine.process_sequence falls back
+    # per-frame elsewhere.
     chunk_frames: int = 0
     results_dir: str = "results"
     save_trajectory: bool = True

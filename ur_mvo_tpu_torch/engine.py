@@ -7,10 +7,9 @@ List[Pose] | None``, SLERP interpolation of the frames between keyframes,
 ``save_map_snapshot``, ``load_map_snapshot`` (localization mode against a
 saved map) and ``save_map_ply``. Poses come back synchronously from the
 tracker. ``device`` defaults to ``cuda`` and raises without it; the tests
-pass ``device="cpu"``.
-
-Not ported yet: the chunked sequence program (``process_sequence`` feeds
-``process`` frame by frame).
+pass ``device="cpu"``. ``process_sequence`` drives a whole sequence, in
+blocks of ``runtime.chunk_frames`` frames through ``Tracker.process_chunk``
+where that is set (one readback a block), else frame by frame.
 """
 
 from __future__ import annotations
@@ -183,13 +182,77 @@ class UR_MVO:
         return res
 
     def process_sequence(self, frames: List[Frame]) -> List[Optional[List[Pose]]]:
-        """Whole sequence: per-frame ``process`` with the next frame
-        prefetched (the multi-frame chunk program is not ported yet, so
-        ``runtime.chunk_frames`` has no effect)."""
-        return [
-            self.process(f, next_data=frames[i + 1] if i + 1 < len(frames) else None)
-            for i, f in enumerate(frames)
-        ]
+        """Whole sequence. With ``runtime.chunk_frames = C > 1`` and an
+        initialized neural tracker, blocks of C frames (the last padded
+        with its last frame) go through :meth:`Tracker.process_chunk`: their
+        device work queued at once, ONE readback a block, the host replaying
+        up to the first keyframe or weak row; the stereo chunk extracts the
+        right images and gates the disparities in each row, the RGB-D rows
+        take their own depth lookups. Initialization, masks, a missing right
+        image and weak-tracking recoveries take the per-frame path, with the
+        next frame prefetched where it takes it too; after a weak row the
+        next two frames go per-frame (the weak frame itself, retried on the
+        bank the chunk handed back, and one more). Per-frame return values
+        match :meth:`process`."""
+        C = int(self.config.runtime.chunk_frames or 0)
+        outs: List[Optional[List[Pose]]] = [None] * len(frames)
+        stereo = self.setup == Setup.STEREO
+        i = 0
+        pending_bank = None  # the weak row's bank handed back by the chunk
+        pf_count = 0  # frames forced per-frame after a weak row
+        while i < len(frames):
+            f = frames[i]
+            n = min(C, len(frames) - i) if C > 1 else 0
+            batch = frames[i : i + n]
+            chunkable = (
+                n > 1
+                and pending_bank is None
+                and pf_count == 0
+                and self.tracker.chunk_available(stereo)
+                and all(fr.mask is None for fr in batch)
+                and (not stereo or all(fr.right_image is not None for fr in batch))
+            )
+            if pf_count > 0:
+                pf_count -= 1
+            if not chunkable:
+                ts = f.image.get_timestamp()
+                if pending_bank is not None:
+                    # the chunk already extracted this frame's features
+                    outs[i] = self._emit(ts, self.tracker.process(pending_bank, ts, self._make_depth_lookup(f)))
+                    pending_bank = None
+                else:
+                    # prefetch the next frame where it takes this path too
+                    nxt = None
+                    if i + 1 < len(frames):
+                        nf = frames[i + 1]
+                        if C <= 1 or nf.mask is not None or not self.tracker.chunk_available(stereo):
+                            nxt = nf
+                    outs[i] = self.process(f, next_data=nxt)
+                i += 1
+                continue
+            imgs = np.stack([fr.image.get_image() for fr in batch])
+            imgs_r = np.stack([fr.right_image.get_image() for fr in batch]) if stereo else None
+            if n < C:  # pad to C frames, as every block is
+                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], C - n, axis=0)])
+                if imgs_r is not None:
+                    imgs_r = np.concatenate([imgs_r, np.repeat(imgs_r[-1:], C - n, axis=0)])
+            ts_list = [fr.image.get_timestamp() for fr in batch]
+            dls = [self._make_depth_lookup(fr) for fr in batch] if self.setup == Setup.RGBD else None
+            results, consumed, weak_bank = self.tracker.process_chunk(
+                imgs, ts_list, depth_lookups=dls, n_valid=n, images_right=imgs_r)
+            for j, pose_mat in enumerate(results):
+                outs[i + j] = self._emit(ts_list[j], pose_mat)
+            i += consumed
+            if weak_bank is not None:
+                # the frame after a weak row is likely weak too: it goes
+                # per-frame as well (2 = the weak frame itself + one more)
+                pf_count = 2
+                if stereo:
+                    # the retry needs the right bank too (a promoted keyframe
+                    # keeps its stereo seeds): it re-extracts both
+                    weak_bank = None
+            pending_bank = weak_bank
+        return outs
 
     def process_directory(self, directory: str) -> List[Pose]:
         """EuRoC-style layout: ``cam0/data/*.png``, 19-digit ns timestamps

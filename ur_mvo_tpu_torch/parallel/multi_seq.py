@@ -214,7 +214,7 @@ class MultiSequenceVO:
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, topt.mono_point, topt.stereo_point,
             rt.pnp_ransac_iterations, rt.pnp_reprojection_threshold, kf.min_num_match, 4.0 * kf.max_distance,
             pnp_sets=pnp_sets, plain=self._plain,
-        )
+        )[0]
 
     # ------------------------------------------------------------------
 

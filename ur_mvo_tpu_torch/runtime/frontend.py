@@ -23,8 +23,10 @@ projection and refines the pose once more on them (:meth:`_track_local_map`).
 :meth:`Tracker.adopt_map` starts the tracker on a loaded map. The
 multi-sequence VO (``parallel/multi_seq.py``) hands :meth:`Tracker.process` the
 frame's match and fused-step row, computed for all its sequences at once
-(:func:`fused_track_core_batched`). Not ported, raising if asked for:
-chunked processing.
+(:func:`fused_track_core_batched`). :meth:`Tracker.process_chunk` tracks up
+to C frames with one readback (``runtime.chunk_frames``, driven by
+``UR_MVO.process_sequence``): the frames' device work is queued at once and
+the host replays the rows up to the first keyframe or weak row.
 """
 
 from __future__ import annotations
@@ -98,13 +100,15 @@ def _track_problem(generator, m: Matches, snapshot, uvr, K_mat, pnp_iterations, 
     )
     R0 = torch.where(weak, R_last_cw, pnp.R_cw)
     t0 = torch.where(weak, t_last_cw, pnp.t_cw)
-    return X, valid_cur, mp_slot, R0, t0, R_last_cw, t_last_cw
+    return X, valid_cur, mp_slot, R0, t0, R_last_cw, t_last_cw, weak
 
 
 def _track_verdict(num_match, uvr, valid_cur, mp_slot, R_last_cw, t_last_cw, R_cw, t_cw, inliers, n_inliers,
-                   min_match, max_jump):
+                   min_match, max_jump, weak):
     """Jump guard + rescue over the two problems' results (``R_cw`` (2, 3,
-    3) ...), packed as :func:`fused_track_core` returns it."""
+    3) ...): the row packed as :func:`fused_track_core` returns it, and
+    what the row read of the last pose, [prior weak (``weak``, the PnP
+    prior's verdict), rescue taken, first problem's jump]."""
     # jump guard + rescue (see Tracker._track_frame for the rationale)
     t_wc_last = _t_wc(R_last_cw, t_last_cw)
     jumps = torch.sqrt(torch.sum((_t_wc(R_cw, t_cw) - t_wc_last) ** 2, dim=-1))  # (2,)
@@ -120,10 +124,11 @@ def _track_verdict(num_match, uvr, valid_cur, mp_slot, R_last_cw, t_last_cw, R_c
     # constraint; matched-but-untriangulated ids are kept as they are
     keep_id = torch.where(valid_cur, inl_f, mp_slot >= 0)
     frame_track = torch.where(keep_id, mp_slot, torch.full_like(mp_slot, -1.0))
-    return torch.cat([
+    packed = torch.cat([
         torch.stack([num_match.to(torch.float32), n_f.to(torch.float32)]),
         R_f.reshape(-1), t_f, frame_track, uvr.reshape(-1),
     ])
+    return packed, torch.stack([weak.to(torch.float32), take_rescue.to(torch.float32), jumps[0]])
 
 
 def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy, bf,
@@ -144,12 +149,15 @@ def fused_track_core(generator, m: Matches, uvr, snapshot, K_mat, fx, fy, cx, cy
     rescue's result is selected on the device when the first one jumped.
     Nothing is read back here. Returns the packed f32 vector [num_match,
     n_inliers, R_cw(9), t_cw(3), frame_track(K), uvr(3K)] (see
-    ``Tracker.parse_fused_packed``). ``pnp_sets`` injects the PnP minimal
-    sets; ``plain`` asks for the plain pose optimizer on any device."""
-    return fused_track_core_batched(
+    ``Tracker.parse_fused_packed``) and, beside it, the 3-vector of what
+    the row read of the last pose (see :func:`_track_verdict`; the chunk
+    path reads it). ``pnp_sets`` injects the PnP minimal sets; ``plain``
+    asks for the plain pose optimizer on any device."""
+    rows, reads = fused_track_core_batched(
         [generator], [m], uvr[None], snapshot[None], K_mat, fx, fy, cx, cy, bf, chi2_mono, chi2_stereo,
         pnp_iterations, pnp_threshold_px, min_match, max_jump, None if pnp_sets is None else [pnp_sets], plain,
-    )[0]
+    )
+    return rows[0], reads[0]
 
 
 def fused_track_core_batched(generators, matches, uvr, snapshots, K_mat, fx, fy, cx, cy, bf,
@@ -162,7 +170,8 @@ def fused_track_core_batched(generators, matches, uvr, snapshots, K_mat, fx, fy,
     problems (lane i's at rows 2i, 2i + 1) are ONE ``optimize_pose`` call,
     one kernel launch on the card. Returns the (S, 14 + 4K) packed rows,
     lane i's row that of :func:`fused_track_core` on lane i's inputs and
-    draws, for one readback a lock-step frame."""
+    draws, for one readback a lock-step frame, and the (S, 3) rows of what
+    each lane read of its last pose."""
     S, K = uvr.shape[0], uvr.shape[1]
     sets = pnp_sets if pnp_sets is not None else [None] * S
     gens = generators if generators is not None else [None] * S
@@ -177,13 +186,15 @@ def fused_track_core_batched(generators, matches, uvr, snapshots, K_mat, fx, fy,
     # its last frame's pose
     res = optimize_pose(R0, t0, PoseObs(X=X, uv=uv, valid=valid), fx, fy, cx, cy, bf,
                         chi2_mono=chi2_mono, chi2_stereo=chi2_stereo, plain=plain)
-    rows = []
-    for i, (_, valid_cur, mp_slot, _, _, R_last_cw, t_last_cw) in enumerate(probs):
+    rows, reads = [], []
+    for i, (_, valid_cur, mp_slot, _, _, R_last_cw, t_last_cw, weak) in enumerate(probs):
         two = slice(2 * i, 2 * i + 2)
-        rows.append(_track_verdict(matches[i].num_valid(), uvr[i], valid_cur, mp_slot, R_last_cw, t_last_cw,
+        row, read = _track_verdict(matches[i].num_valid(), uvr[i], valid_cur, mp_slot, R_last_cw, t_last_cw,
                                    res.R_cw[two], res.t_cw[two], res.inliers[two], res.n_inliers[two],
-                                   min_match, max_jump))
-    return torch.stack(rows)
+                                   min_match, max_jump, weak)
+        rows.append(row)
+        reads.append(read)
+    return torch.stack(rows), torch.stack(reads)
 
 
 class Tracker:
@@ -237,6 +248,9 @@ class Tracker:
         self._frames_lost = 0  # all frames that could not be tracked
         self._relocalizations = 0
         self._pose_calls = 0  # optimize_pose calls of this tracker's own flow
+        # process_chunk's calls, rows queued, rows consumed, weak rows and
+        # rows cut where the carried pose was read and differed from the host's
+        self.chunk_stats = dict.fromkeys(("chunks", "rows", "consumed", "weak", "pose_cuts"), 0)
         self.adopted_track = False  # whether the last frame adopted its precomputed_track
         self._lost_count = 0  # consecutive lost frames (relocalization)
         self._reloc_next_attempt = 0  # failed-relocalization backoff (_handle_lost)
@@ -361,12 +375,13 @@ class Tracker:
         return torch.where(ok, rx, torch.full_like(rx, -1.0))
 
     @torch.no_grad()
-    def _fused_kernel(self, ref_bank, bank, snapshot: torch.Tensor, bank_right=None) -> torch.Tensor:
+    def _fused_kernel(self, ref_bank, bank, snapshot: torch.Tensor, bank_right=None):
         """Fused frame step: match-vs-ref + correspondence scatter + PnP
         prior + pose refinement + jump-guard rescue, queued on the device
-        with ONE packed f32 result (see :func:`fused_track_core`). With
-        ``bank_right`` the left-right match and its gate run in the same
-        step and fill the third column of ``uvr``."""
+        with ONE packed f32 result and what it read of the last pose (see
+        :func:`fused_track_core`). With ``bank_right`` the left-right match
+        and its gate run in the same step and fill the third column of
+        ``uvr``."""
         cam, topt, rt, kf = self.camera, self.cfg.tracking_optimization, self.cfg.runtime, self.cfg.keyframe
         K = bank.kpts.shape[0]
         if bank_right is None:
@@ -516,8 +531,118 @@ class Tracker:
                 good = st.mp_good & ~st.mp_bad
                 self.publisher.publish_map(MapMessage(ids=np.nonzero(good)[0], points=st.mp_pos[good]))
 
-    def process_chunk(self, *args, **kwargs):
-        raise NotImplementedError("Tracker.process_chunk: chunked processing is not ported yet")
+    # ------------------------------------------------------------------
+    # Multi-frame chunk tracking: the device work of up to C frames queued
+    # at once, one packed readback, the host replaying the rows
+    # ------------------------------------------------------------------
+
+    def chunk_available(self, stereo: bool = False) -> bool:
+        """Whether :meth:`process_chunk` can take the next frames: a neural
+        extractor (whose match stays on the device), an initialized tracker
+        with a reference bank, local-map tracking off (the chunk has no
+        local-map step) and no resolution buckets (the chunk extracts at
+        the base size). ``stereo`` also asks for a baseline: without one
+        the per-frame path takes the two-program flow."""
+        return (
+            self._fused
+            and self._initialized
+            and self._ref_bank is not None
+            and not self.cfg.local_map_tracking.enabled
+            and getattr(self.extractor, "_buckets", None) is None
+            and (not stereo or self.camera.bf > 0)
+        )
+
+    @torch.no_grad()
+    def process_chunk(self, images, timestamps, depth_lookups=None, n_valid=None, images_right=None):
+        """Track up to C frames with ONE readback.
+
+        ``images``: (C, H, W) uint8; the first ``n_valid`` are real (the
+        tail may be padding); ``images_right``: the right images (stereo);
+        ``depth_lookups``: one per frame (RGB-D). Every real frame's
+        extraction, match and fused track step (:meth:`_fused_kernel`, the
+        per-frame path's own) is queued on the device, each row seeded at
+        the last row's pose, carried on the device through the host's
+        float32 round trip (T_wc, then its R_cw, t_cw); then one readback,
+        and the host replays the rows in order through the per-frame tail
+        (:meth:`_finish_tracked_frame`) up to the cut:
+
+        - a keyframe row is consumed and ends the chunk (the map changed);
+        - a weak row (too few matches or inliers, or a non-finite pose) is
+          not consumed: its bank is handed back for the per-frame retry
+          (whose promote-keyframe recovery is host logic);
+        - a row that read the carried pose (a weak PnP prior seeds at it,
+          the rescue took over, or the jump guard's margin is within
+          rounding) where that pose differs in any bit from the host's is
+          not consumed either: the next call starts there from the host's
+          state.
+
+        Both samplers (the tracker's and the extractor's) are then set to
+        their state before the first row not consumed, so the rest of the
+        run draws what the per-frame path draws: a consumed row is the
+        per-frame path's frame bit for bit. Returns ``(results, consumed,
+        weak_bank)``: the keyframe pose (or None) of each consumed frame,
+        how many were consumed, and the weak row's bank or None."""
+        C = int(images.shape[0])
+        n_valid = C if n_valid is None else int(n_valid)
+        stereo = images_right is not None
+        if not self.chunk_available(stereo):
+            raise ValueError("process_chunk: the chunk path is not available (see chunk_available)")
+        K = self.cfg.superpoint.capacity
+        min_match = self.cfg.keyframe.min_num_match
+        max_jump = 4.0 * self.cfg.keyframe.max_distance
+        ext = self.extractor
+        snap0 = self._upload(self.fused_snapshot())
+        R_last, t_last = snap0[0:9, 5].reshape(3, 3), snap0[9:12, 5]
+        banks, rows, states = [], [], []
+        with self.timer.span("track"):
+            for j in range(n_valid):
+                states.append((self._gen.get_state(), ext._gen.get_state()))
+                bank = ext.extract(images[j])
+                bank_right = ext.extract(images_right[j], right=True) if stereo else None
+                posecol = torch.cat([R_last.reshape(-1), t_last, snap0.new_zeros(K - 12)])
+                packed, read = self._fused_kernel(self._ref_bank, bank, torch.cat([snap0[:, :5], posecol[:, None]], 1),
+                                                  bank_right)
+                banks.append(bank)
+                rows.append(torch.cat([packed, posecol[:12], read]))
+                well = (packed[0] >= min_match) & (packed[1] >= min_match)
+                R_cw = packed[2:11].reshape(3, 3)
+                R_last = torch.where(well, R_cw, R_last)
+                t_last = torch.where(well, mv(-R_cw, mv(-R_cw.transpose(0, 1), packed[11:14])), t_last)
+            states.append((self._gen.get_state(), ext._gen.get_state()))
+            outs = torch.stack(rows).cpu().numpy()  # ONE readback for the chunk
+        results, consumed, weak_bank = [], 0, None
+        for j in range(n_valid):
+            row, used, (prior_weak, rescued, jump) = outs[j, : 14 + 4 * K], outs[j, 14 + 4 * K : -3], outs[j, -3:]
+            num_match, n_inl = int(row[0]), int(row[1])
+            if num_match < min_match or n_inl < min_match or not np.all(np.isfinite(row[2:14])):
+                weak_bank = banks[j]
+                break
+            last = self.fused_snapshot_pose()
+            if not np.array_equal(used.view(np.uint32), last.view(np.uint32)):
+                # the row's bits depend on the carried pose where the prior
+                # or the rescue start from it, or where its ulps could move
+                # the jump guard's verdict
+                margin = 1e-5 * (1.0 + max_jump + float(np.abs(self._last_pose[:3, 3]).sum()))
+                if prior_weak > 0.5 or rescued > 0.5 or not abs(jump - max_jump) > margin:
+                    self.chunk_stats["pose_cuts"] += 1
+                    break
+            _, _, pose, frame_track, uvr = self.parse_fused_packed(row)
+            self.adopted_track = False
+            fid = self._frame_counter
+            self._frame_counter += 1
+            pose_out = self._finish_tracked_frame(banks[j], uvr, pose, frame_track, n_inl, timestamps[j], fid,
+                                                  self._ref_frame_id,
+                                                  depth_lookups[j] if depth_lookups is not None else None)
+            results.append(pose_out)
+            consumed += 1
+            if pose_out is not None:
+                break  # a keyframe changed the map: the next chunk starts from it
+        if consumed < n_valid:
+            self._gen.set_state(states[consumed][0])
+            ext._gen.set_state(states[consumed][1])
+        for k, v in (("chunks", 1), ("rows", n_valid), ("consumed", consumed), ("weak", weak_bank is not None)):
+            self.chunk_stats[k] += int(v)
+        return results, consumed, weak_bank
 
     def adopt_map(self) -> None:
         """Enter localization mode against the backend's current map
@@ -917,10 +1042,14 @@ class Tracker:
         # forward (untriangulated), 0 = none — see fused_track_core
         snap[:, 3] = live.astype(np.float32) + ok.astype(np.float32)
         snap[:, 4] = ref_track
-        R_last_cw = self._last_pose[:3, :3].T
-        snap[0:9, 5] = R_last_cw.reshape(-1)
-        snap[9:12, 5] = -R_last_cw @ self._last_pose[:3, 3]
+        snap[0:12, 5] = self.fused_snapshot_pose()
         return snap
+
+    def fused_snapshot_pose(self) -> np.ndarray:
+        """The last pose as the fused step takes it: [R_cw (9), t_cw (3)],
+        f32, from the host's T_wc."""
+        R_last_cw = self._last_pose[:3, :3].T
+        return np.concatenate([R_last_cw.reshape(-1), -R_last_cw @ self._last_pose[:3, 3]]).astype(np.float32)
 
     def parse_fused_packed(self, arr: np.ndarray):
         """Decode a fused-step packed vector (host array) into
@@ -946,7 +1075,7 @@ class Tracker:
         readback (see fused_snapshot/parse_fused_packed)."""
         snap = self._upload(self.fused_snapshot())
         with self.timer.span("track"):
-            arr = self._fused_kernel(self._ref_bank, bank, snap, bank_right).cpu().numpy()
+            arr = self._fused_kernel(self._ref_bank, bank, snap, bank_right)[0].cpu().numpy()
         return self.parse_fused_packed(arr)
 
     def _promote_last_frame(self, timestamp):
