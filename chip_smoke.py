@@ -5,8 +5,11 @@ loop-bearing protocol with global optimization, the stereo and RGB-D
 engines with the hybrid matcher, the tracking and map extras
 (local-map tracking, resolution buckets, sub-pixel peaks, patch
 descriptors, map snapshots), several sequences stepped lock-step, the
-mesh paths (sequences, pairs and a global BA sharded over ranks), and the
-sequence entry points (chunked tracking, the command line).
+mesh paths (sequences, pairs and a global BA sharded over ranks), the
+sequence entry points (chunked tracking, the command line), and training
+and export (SuperPoint pretraining and fine-tuning through the stage op's
+gradient, SuperGlue training, the data-parallel step, the exported frame
+step).
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -258,6 +261,40 @@ layers, bf16 compute. Phases, each printing one JSON line:
    production operating point as a config (a lane must take >= 3
    keyframes); all of it under deterministic algorithms, and the host
    syncs counted with their ten busiest sites.
+17. training: the stage kernel's ``torch.library`` op
+   (``ur_mvo_tpu_torch::stage_conv``) in float32 at B = 16, 128x128 and
+   B = 8, 256x320: the three stages forward within 1e-4 of the largest
+   output of the plain versions, each stage's backward at the kernel
+   path's stage inputs the plain version's autograd bit for bit, the
+   gradients of a fixed random projection of the chain's output with
+   respect to the input and the six weights and biases within 1e-2
+   (relative L2) of the all-plain chain's (deterministic, no TF32), 3
+   launches a backbone call and none in the backward; attention, Sinkhorn (and the dustbin transport), pose GN and
+   both point reductions called on CUDA inputs that require grad under grad
+   mode must raise (and run under ``torch.no_grad()``);
+   ``models.pretrain_superpoint.pretrain`` at full width (B = 16, 128x128,
+   the NCE descriptor term, seed 0, 60 steps at lr 2e-3) held to
+   ``tests/test_pretrain.py``'s gate on a fresh batch (detector loss < 0.85
+   x an untrained network's, corner cells' peak scores >= 1.3 x the
+   background's), 9 stage-kernel launches a step; 20 fine-tuning steps
+   (``train_superpoint``, the descriptor head of the shipped detector,
+   rendered 256x320 frames, B = 8): a held-out batch's loss falls, only
+   convDa / convDb change bits, 6 launches a step; 20 steps of
+   ``train_superglue.train_on_device`` at ``train_superglue.py``'s defaults
+   (9 layers, 4 heads, capacity 256, 640x512, B = 8; ``kernels=False``):
+   a held-out batch's loss falls, no kernel launched; the data-parallel step
+   (``parallel.train_step``) in ranks of their own (this script with
+   ``--train-rank``; world 1 over NCCL, world 2 over gloo with CUDA
+   tensors, both at once, on a batch of 4 warped pairs of rendered 256x320
+   frames): world 1 bit for bit with the single step, world 2 within
+   rtol 1e-5 of the whole batch's loss and 1e-5 of its largest gradient,
+   the replicas bit for bit; the frame step at 240x320 with the shipped
+   weights exported (``models.export``), saved, reloaded and run: 6
+   ``stage_conv`` nodes, outputs equal to the eager step's, the stage
+   kernel launched 6 times (3 an image), keypoints and matches against a
+   float32 ``NeuralExtractor``'s extract and match at phases 4-5's
+   thresholds (overlap >= 0.95, agreement >= 0.90). Seconds a step of each
+   trainer, the export's trace, load and run times.
 
 Then each phase's seconds, the ``kernels`` line (launches from the engine
 run; the sorted reduction's from the long map's ``global_optimize``, the
@@ -266,9 +303,11 @@ shape; ``launches_by_path``: each path's own counts, ``mono/long`` with the
 long map's ``global_optimize``, phase 13's paths, ``local_map_step``
 the local-map steps' own ``pose_gn`` launches, phase 14's
 ``multi_seq``, phase 15's ``mesh/w1``, ``mesh/w2/r0``, ``mesh/w2/r1``:
-each rank's lanes and match, and phase 16's ``chunk`` (inside
+each rank's lanes and match, phase 16's ``chunk`` (inside
 ``process_chunk``) and ``cli/run_vo``, ``cli/run_vo_chunk``,
-``cli/run_vo_multi``), the ``nvidia-smi`` name/power-limit line,
+``cli/run_vo_multi``, and phase 17's ``train/pretrain``,
+``train/finetune``, ``train/superglue``, ``train/export`` (the reloaded
+program's run) and ``train/dp/w1``, ``train/dp/w2/r0``, ``train/dp/w2/r1``), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
 ``{"phase": ..., "failed": ...}`` line and the run goes on to the next
 phase; at the end any failure makes the exit code 1 and leaves the
@@ -298,7 +337,7 @@ file into one and run it there to take that kernel's digest).
 ``--only-extras`` builds and runs phase 13 alone; ``--only-multi-seq``
 phase 14; ``--only-mesh`` phase 15 (with phase 14's S = 3 run and phase
 9's long map for its references); ``--only-sequence`` phase 16 (with its
-own per-frame runs); ``--multi-seq-witness`` phase 14's lanes under the variants of
+own per-frame runs); ``--only-training`` phase 17; ``--multi-seq-witness`` phase 14's lanes under the variants of
 ``multi_seq_witness`` (float32, other samplers, each lane alone, other
 scenes), a per-frame trace a lane.
 ``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
@@ -482,6 +521,19 @@ SINGLE_STREAM_ROWS: list = []
 MESH_WORLDS = ((1, "nccl", (0, 1, 2)), (2, "gloo", (1, 2)))
 MESH_DEVICE = "cuda:0"
 MESH_DEADLINE_S = 240
+# phase 17: pretraining (pretrain_superpoint.py's default 128x128, the CLI's
+# batch of 16), the fine-tuning crop (train_superpoint.py's 256x320, batch 8),
+# SuperGlue training at train_superglue.py's defaults (9 layers, 4 heads,
+# capacity 256, 640x512, batch 8)
+PRETRAIN_SHAPE = (16, 128, 128)
+PRETRAIN_STEPS = 60
+PRETRAIN_LR = 2e-3  # tests/test_pretrain.py's
+TRAIN_CROP = (256, 320)
+FINETUNE_BATCH = 8
+FINETUNE_STEPS = 20
+SG_TRAIN = dict(batch=8, capacity=256, width=640, height=512, num_layers=9, num_heads=4)
+SG_STEPS, SG_CHUNK = 20, 10
+TRAIN_DEADLINE_S = 150
 MULTI_SEQ_REF: dict = {}
 LONG_MAP_REF: dict = {}
 GLOBAL_BA_REF: dict = {}
@@ -689,7 +741,8 @@ def shipped_superpoint():
 
     sp = SuperPoint()
     sp.load_state_dict(load_torch_weights(SP_WEIGHTS))
-    return sp.to(device="cuda", dtype=torch.bfloat16)
+    # frozen: the stage op records no gradient graph for these checks
+    return sp.to(device="cuda", dtype=torch.bfloat16).requires_grad_(False)
 
 
 def stage_convs(sp, name):
@@ -4703,6 +4756,465 @@ def sequence_phase(smi):
             "cli/run_vo_multi": cli["run_vo_multi"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training and export
+# ---------------------------------------------------------------------------
+
+def train_rank(rank, world, backend, workdir):
+    """``--train-rank R WORLD BACKEND DIR``: one rank of phase 17's
+    data-parallel step on ``cuda:0`` under deterministic algorithms with
+    TF32 off: the
+    single-process step on the whole batch and ``make_dp_train_step`` on
+    this rank's half (two model copies from the same weights); the loss,
+    the descriptor head's gradients and parameters after the step and the
+    DP step's stage-kernel launches, pickled to ``DIR/w{WORLD}_rank{R}.pkl``."""
+    import pickle
+
+    import torch
+
+    from ur_mvo_tpu_torch.models import train_superpoint as train_sp
+    from ur_mvo_tpu_torch.models.superpoint import SuperPoint
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.parallel import mesh as tmesh
+    from ur_mvo_tpu_torch.parallel.train_step import make_dp_train_step
+
+    t_start = time.perf_counter()
+    # deterministic, and float32 convolutions (no TF32): the DP step and the
+    # whole-batch step then differ only in the order of their sums
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.allow_tf32 = False
+    dev = tmesh.init_distributed(backend, init_method=f"file://{workdir}/rendezvous_w{world}", world_size=world,
+                                 rank=rank, device=MESH_DEVICE)
+    mesh = tmesh.make_mesh(world)
+    cuda_ext.extension()
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in inp["batch"].items()}
+    out = {"rank": rank, "world": world}
+    for name in ("single", "dp"):
+        model = SuperPoint()
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in inp["sp"].items()})
+        model = model.to(dev)
+        opt = train_sp.make_optimizer(model)
+        step = train_sp.make_train_step(opt) if name == "single" else make_dp_train_step(opt, mesh)
+        torch.cuda.synchronize()
+        cuda_ext.LAUNCHES.clear()
+        loss = step(model, batch)
+        torch.cuda.synchronize()
+        head = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        out[name] = {"loss": float(loss), "launches": dict(cuda_ext.LAUNCHES),
+                     "params": {n: p.detach().cpu().numpy() for n, p in head.items()},
+                     "grads": {n: p.grad.cpu().numpy() for n, p in head.items()},
+                     "frozen_same": all(torch.equal(p.detach().cpu(), torch.from_numpy(inp["sp"][n]))
+                                        for n, p in model.named_parameters() if not p.requires_grad)}
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(workdir, f"w{world}_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def start_train_ranks(workdir, sp_state):
+    """Phase 17's data-parallel ranks, both worlds of ``MESH_WORLDS`` at
+    once: the inputs (the shipped detector, a batch of 4 warped pairs of
+    rendered 256x320 frames) pickled for them first."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.models.train_superpoint import make_batch
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    os.makedirs(workdir)
+    imgs = render_sequence(4, TRAIN_CROP[0], TRAIN_CROP[1], FX, seed=31)[0]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    batch = make_batch(g, torch.from_numpy(imgs).cuda().float() / 255.0)
+    with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+        pickle.dump({"sp": {k: v.numpy() for k, v in sp_state.items()},
+                     "batch": {k: v.cpu().numpy() for k, v in batch.items()}}, f)
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    env.pop("LOCAL_RANK", None)
+    procs = []
+    for world, backend, _ in MESH_WORLDS:
+        for rank in range(world):
+            log = open(os.path.join(workdir, f"w{world}_rank{rank}.log"), "w")
+            procs.append((world, backend, rank, log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--train-rank", str(rank), str(world), backend, workdir],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs, np.asarray(batch["mask"].cpu())
+
+
+def join_train_ranks(workdir, procs, mask, smi):
+    """Wait for the ranks (``TRAIN_DEADLINE_S``) and hold them: world 1's DP
+    step is its single step bit for bit (loss, gradients, parameters); at
+    world 2 each rank's loss is the whole batch's within rtol 1e-5, its
+    summed gradients within 1e-5 of the largest, its parameters within 1e-6
+    (1e-3, lr, where the gradient is within 100x of Adam's epsilon), the two
+    replicas bit for bit, every frozen parameter unchanged, 6 stage-kernel
+    launches (two backbone calls) a DP step. Returns the DP steps' launches."""
+    import pickle
+
+    import numpy as np
+
+    bad, deadline = [], time.monotonic() + TRAIN_DEADLINE_S
+    try:
+        for world, _, rank, _, p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                bad.append(f"world {world} rank {rank}: not done within {TRAIN_DEADLINE_S} s")
+                break
+    finally:
+        for _, _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    outs, launches = {}, {}
+    for world, backend, rank, _, p in procs:
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"w{world}_rank{rank}.log")) as f:
+                text = f.read()
+            bad.append(f"world {world} rank {rank} exited {p.returncode}")
+            print(f"--- train rank w{world} r{rank} (exit {p.returncode}):\n{text[-3000:]}", file=sys.stderr, flush=True)
+            continue
+        with open(os.path.join(workdir, f"w{world}_rank{rank}.pkl"), "rb") as f:
+            outs[world, rank] = o = pickle.load(f)
+        ref, got = o["single"], o["dp"]
+        scale = max(np.abs(g).max() for g in ref["grads"].values())
+        if world == 1:
+            same = ref["loss"] == got["loss"] and all(
+                np.array_equal(ref[k][n], got[k][n]) for k in ("params", "grads") for n in ref["params"])
+            faults = [] if same else ["the DP step at world 1 is not the single step bit for bit"]
+        else:
+            faults = []
+            if abs(got["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+                faults.append(f"loss {got['loss']} vs {ref['loss']}")
+            for n, g in ref["grads"].items():
+                if np.abs(got["grads"][n] - g).max() > 1e-5 * scale:
+                    faults.append(f"{n} gradient off by {np.abs(got['grads'][n] - g).max() / scale} of the largest")
+                limit = np.where(np.abs(g) > 1e-6, 1e-6, 1e-3)
+                if not np.all(np.abs(got["params"][n] - ref["params"][n]) <= limit):
+                    faults.append(f"{n} after the step: {np.abs(got['params'][n] - ref['params'][n]).max()}")
+        dp_launch = got["launches"]
+        if dp_launch.get("stage1_conv", 0) != 2 or dp_launch.get("stage_conv", 0) != 4:
+            faults.append(f"DP step launches {dp_launch} (2 backbone calls: stage1_conv 2, stage_conv 4)")
+        if not (got["frozen_same"] and ref["frozen_same"]):
+            faults.append("a frozen parameter moved")
+        launches[f"train/dp/w{world}" + (f"/r{rank}" if world > 1 else "")] = dp_launch
+        emit({"phase": "training", "check": "dp_step", "world": world, "backend": backend, "rank": rank,
+              "loss_dp": got["loss"], "loss_single_whole_batch": ref["loss"],
+              "max_grad_diff_rel": float(max(np.abs(got["grads"][n] - g).max() for n, g in ref["grads"].items()) / scale),
+              "max_param_diff": float(max(np.abs(got["params"][n] - ref["params"][n]).max() for n in ref["params"])),
+              "launches": dp_launch, "seconds": o["seconds"], "faults": faults, "card": smi})
+        bad += [f"world {world} rank {rank}: {f}" for f in faults]
+    if all((2, r) in outs for r in range(2)):
+        if not all(np.array_equal(outs[2, 0]["dp"]["params"][n], outs[2, 1]["dp"]["params"][n])
+                   for n in outs[2, 0]["dp"]["params"]):
+            bad.append("world 2: the replicas differ after the step")
+        if mask[:2].sum() == mask[2:].sum():
+            bad.append("world 2: the halves hold as many valid cells (the check cannot tell a mean of rank losses)")
+    return launches, bad
+
+
+def stage_op_check(sp, smi):
+    """The stage op on the card in float32 at the training shapes, under
+    deterministic algorithms with TF32 off: the three stages chained as the
+    backbone chains them, forward within phase 3's float32 limit (1e-4 of
+    the largest output) of the plain versions, 3 launches a backbone call
+    (one a stage) and none in the backward. Its backward, stage by stage at
+    the kernel path's own stage inputs and a fixed random projection of the
+    stage's output, bit for bit the plain version's autograd (the op's
+    backward IS the plain recompute). Chained, the gradients of a random
+    projection of stage 3's output with respect to the input and the six
+    weights and biases within 1e-2 (relative L2 norm) of the all-plain
+    chain's: the kernel's forward differs from the plain one in its last
+    bits, which moves a few 2x2 max-pool winners and ReLU gates in stages
+    2-3, and each such flip reroutes one gradient entry whole (the largest
+    entrywise difference is printed beside it); a backward that dropped or
+    doubled a stage misses by O(1)."""
+    import torch
+
+    from ur_mvo_tpu_torch.models.superpoint import _STAGES
+    from ur_mvo_tpu_torch.ops import cuda_conv, cuda_ext
+
+    rows, bad = [], []
+    g = torch.Generator(device="cuda").manual_seed(23)
+    names = [n for pair in _STAGES for n in pair]
+    params = [t.detach() for n in names for t in (getattr(sp, n).weight, getattr(sp, n).bias)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for B, Hh, Ww in (PRETRAIN_SHAPE, (FINETUNE_BATCH, *TRAIN_CROP)):
+                x0 = torch.rand((B, Hh, Ww, 1), generator=g, device="cuda")
+                runs = {}
+                for plain in (False, True):
+                    x = x0.clone().requires_grad_()
+                    ps = [t.clone().requires_grad_() for t in params]
+                    torch.cuda.synchronize()
+                    cuda_ext.LAUNCHES.clear()
+                    ys = [x]
+                    for s in range(3):
+                        ys.append(cuda_conv.stage_conv(ys[-1], *ps[4 * s:4 * s + 4], plain=plain))
+                    proj = torch.randn(ys[-1].shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                                       device="cuda")
+                    fwd = dict(cuda_ext.LAUNCHES)
+                    grads = torch.autograd.grad((ys[-1] * proj).sum(), [x, *ps])
+                    torch.cuda.synchronize()
+                    runs[plain] = ([y.detach() for y in ys], grads, fwd, dict(cuda_ext.LAUNCHES))
+                (ys, gk, fwd, total), (yps, gp, _, _) = runs[False], runs[True]
+                err = (ys[-1] - yps[-1]).abs().max().item()
+                tol = 1e-4 * yps[-1].abs().max().item()
+                rel_l2 = max((torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item() for a, b in zip(gk, gp))
+                max_rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gk, gp))
+                # each stage's backward at the kernel path's stage input
+                exact = []
+                for s in range(3):
+                    outs = []
+                    for plain in (False, True):
+                        xs = ys[s].clone().requires_grad_()
+                        ws = [t.clone().requires_grad_() for t in params[4 * s:4 * s + 4]]
+                        y = cuda_conv.stage_conv(xs, *ws) if not plain else cuda_conv.stage_conv_plain(xs, *ws)
+                        pr = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(s), device="cuda")
+                        outs.append(torch.autograd.grad((y * pr).sum(), [xs, *ws]))
+                    exact.append(all(torch.equal(a, b) for a, b in zip(*outs)))
+                row = {"shape": f"{B}x{Hh}x{Ww}", "max_abs_err": err, "tol": tol, "grad_rel_l2": rel_l2,
+                       "grad_rel_l2_tol": 1e-2, "grad_max_abs_rel": max_rel, "stage_backward_bit_for_bit": exact,
+                       "launches_forward": fwd, "launches_with_backward": total}
+                rows.append(row)
+                if not err <= tol:
+                    bad.append(f"{row['shape']}: forward {err} > {tol}")
+                if not rel_l2 <= 1e-2:
+                    bad.append(f"{row['shape']}: chained gradients {rel_l2} (relative L2) of the all-plain ones (> 1e-2)")
+                if not all(exact):
+                    bad.append(f"{row['shape']}: a stage's backward is not the plain VJP bit for bit: {exact}")
+                if fwd != {"stage1_conv": 1, "stage_conv": 2} or total != fwd:
+                    bad.append(f"{row['shape']}: launches {fwd} forward, {total} with backward (1 + 2, none in backward)")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit({"phase": "training", "check": "stage_op", "rows": rows, "card": smi})
+    return bad
+
+
+def cell_scores_ratio(model, batch):
+    """The JAX pretraining test's gate on ``batch``: (detector loss, mean
+    score max of corner cells over background cells)."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.models.pretrain_superpoint import detector_loss
+
+    img = torch.from_numpy(batch["image"]).cuda()
+    lab = torch.from_numpy(batch["labels"]).cuda()
+    with torch.no_grad():
+        loss = detector_loss(model, img, lab).item()
+        scores, _ = model(img[..., None])
+    s = scores.cpu().numpy()
+    B, Hh, Ww = s.shape
+    cell = s.reshape(B, Hh // 8, 8, Ww // 8, 8).max(axis=(2, 4))
+    return loss, float(cell[batch["labels"] != 64].mean() / cell[batch["labels"] == 64].mean())
+
+
+def training_phase(smi):
+    """Phase 17: training and export on the card (see the module docstring).
+    Returns each path's launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.config import Configs
+    from ur_mvo_tpu_torch.models import export as sp_export
+    from ur_mvo_tpu_torch.models import pretrain_superpoint as pre
+    from ur_mvo_tpu_torch.models import superglue as sg_mod
+    from ur_mvo_tpu_torch.models import train_superglue as train_sg
+    from ur_mvo_tpu_torch.models import train_superpoint as train_sp
+    from ur_mvo_tpu_torch.models.superpoint import SuperPoint, load_torch_weights
+    from ur_mvo_tpu_torch.ops import cuda_ba, cuda_ext, cuda_kernels, cuda_pose
+    from ur_mvo_tpu_torch.runtime.extractor import NeuralExtractor
+    from ur_mvo_tpu_torch.utils.synthscene import render_sequence
+
+    t_phase = time.perf_counter()
+    workdir = os.path.join(REPO, "build", "training")
+    shutil.rmtree(workdir, ignore_errors=True)
+    sp_state = load_torch_weights(SP_WEIGHTS)
+    procs, dp_mask = start_train_ranks(workdir, sp_state)
+    bad, launches, seconds = [], {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        cuda_ext.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = dict(cuda_ext.LAUNCHES)
+        return r
+
+    # --- the stage op: forward, gradients, launches --------------------------
+    sp32 = SuperPoint()
+    sp32.load_state_dict(sp_state)
+    bad += stage_op_check(sp32.cuda(), smi)
+
+    # --- the grad-mode guard of the kernels without a gradient --------------
+    dev = "cuda"
+    q = torch.randn((2, 64, 4, 64), device=dev)
+    valid = torch.ones((2, 64), dtype=torch.bool, device=dev)
+    C = torch.randn((65, 65), device=dev)
+    mu = torch.zeros(65, device=dev)
+    A, Vp = torch.randn((64, 18), device=dev), torch.randn((64, 12), device=dev)
+    ids = torch.zeros(64, dtype=torch.int64, device=dev)
+    X = torch.randn((1, 32, 3), device=dev) + torch.tensor([0.0, 0.0, 5.0], device=dev)
+    R0, t0 = torch.eye(3, device=dev)[None], torch.zeros((1, 3), device=dev)
+    calls = {
+        "attention": lambda r: cuda_kernels.attention(r(q), q, q, valid),
+        "sinkhorn": lambda r: cuda_kernels.sinkhorn(r(C), mu, mu, 3),
+        "log_optimal_transport_kernel": lambda r: cuda_kernels.log_optimal_transport_kernel(
+            r(C[:64, :64]), valid[0], valid[0], torch.tensor(1.0, device=dev), 3),
+        "pose_gn": lambda r: cuda_pose.pose_gn(R0, t0, r(X), X, valid[:1, :32], 200.0, 200.0, 32.0, 32.0, 0.0,
+                                               5.99, 7.81, 1, 2, 1e-4),
+        "point_reduce": lambda r: cuda_ba.point_reduce(r(A), Vp, ids, ids, 4, 2),
+        "point_reduce_sorted": lambda r: cuda_ba.point_reduce_sorted(
+            r(A), Vp, ids, ids, torch.tensor([0, 64, 64, 64, 64], device=dev), 2),
+    }
+    guard = {}
+    for name, call in calls.items():
+        try:
+            call(lambda t: t.clone().requires_grad_())
+            guard[name] = "returned"
+        except RuntimeError as e:
+            guard[name] = "raised" if "kernels=False" in str(e) and "plain=True" in str(e) else f"other: {e}"
+        with torch.no_grad():
+            call(lambda t: t.clone().requires_grad_())  # under no_grad the kernel runs
+    emit({"phase": "training", "check": "grad_guard", "guard": guard, "card": smi})
+    bad += [f"{k} under grad mode: {v}" for k, v in guard.items() if v != "raised"]
+
+    # --- pretraining at full width -------------------------------------------
+    Bp, Hp, Wp = PRETRAIN_SHAPE
+    model = run("train/pretrain", lambda: pre.pretrain(torch.Generator().manual_seed(0), steps=PRETRAIN_STEPS,
+                                                       batch=Bp, H=Hp, W=Wp, lr=PRETRAIN_LR, seed=0, log_every=0,
+                                                       device="cuda"))
+    held = pre.make_pretrain_batch(np.random.default_rng(123), Bp, Hp, Wp)
+    trained, ratio = cell_scores_ratio(model, held)
+    untrained, ratio0 = cell_scores_ratio(SuperPoint().init_random(torch.Generator().manual_seed(1)).cuda(), held)
+    pl = launches["train/pretrain"]
+    emit({"phase": "training", "check": "pretrain", "shape": list(PRETRAIN_SHAPE), "steps": PRETRAIN_STEPS,
+          "lr": PRETRAIN_LR, "desc_objective": "nce", "s_per_step": seconds["train/pretrain"] / PRETRAIN_STEPS,
+          "detector_loss_trained": trained, "detector_loss_untrained": untrained, "loss_ratio": trained / untrained,
+          "corner_over_background": ratio, "corner_over_background_untrained": ratio0, "launches": pl, "card": smi})
+    if not trained < 0.85 * untrained:
+        bad.append(f"pretrain: trained detector loss {trained} not < 0.85 x untrained {untrained}")
+    if not ratio >= 1.3:
+        bad.append(f"pretrain: corner cells {ratio}x background (>= 1.3)")
+    if pl.get("stage1_conv") != 3 * PRETRAIN_STEPS or pl.get("stage_conv") != 6 * PRETRAIN_STEPS:
+        bad.append(f"pretrain launches {pl} (9 a step: 3 backbone calls)")
+
+    # --- fine-tuning the descriptor head of the shipped detector --------------
+    Bf = FINETUNE_BATCH
+    frames = render_sequence(2 * Bf, TRAIN_CROP[0], TRAIN_CROP[1], FX, seed=32)[0]
+    imgs = torch.from_numpy(frames).cuda().float() / 255.0
+    eval_batch = train_sp.make_batch(torch.Generator(device="cuda").manual_seed(99), imgs[Bf:])
+    ft = SuperPoint()
+    ft.load_state_dict(sp_state)
+    ft = ft.cuda()
+    opt = train_sp.make_optimizer(ft)
+    step = train_sp.make_train_step(opt)
+    with torch.no_grad():
+        before = train_sp.loss_fn(ft, eval_batch).item()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    losses = run("train/finetune", lambda: [float(step(ft, train_sp.make_batch(gen, imgs[:Bf])))
+                                             for _ in range(FINETUNE_STEPS)])
+    with torch.no_grad():
+        after = train_sp.loss_fn(ft, eval_batch).item()
+    changed = sorted({k.split(".")[0] for k, v in ft.state_dict().items() if not torch.equal(v.cpu(), sp_state[k])})
+    fl = launches["train/finetune"]
+    emit({"phase": "training", "check": "finetune", "batch": Bf, "crop": list(TRAIN_CROP), "steps": FINETUNE_STEPS,
+          "s_per_step": seconds["train/finetune"] / FINETUNE_STEPS, "train_losses": losses,
+          "held_out_loss_before": before, "held_out_loss_after": after, "layers_changed": changed,
+          "launches": fl, "card": smi})
+    if not (np.isfinite(losses).all() and after < before):
+        bad.append(f"finetune: held-out loss {before} -> {after}, losses {losses}")
+    if changed != ["convDa", "convDb"]:
+        bad.append(f"finetune changed {changed} (only convDa, convDb)")
+    if fl.get("stage1_conv") != 2 * FINETUNE_STEPS or fl.get("stage_conv") != 4 * FINETUNE_STEPS:
+        bad.append(f"finetune launches {fl} (6 a step: 2 backbone calls)")
+
+    # --- SuperGlue training at full width --------------------------------------
+    sgc = SG_TRAIN
+    held_sg = train_sg.make_batch_device(torch.Generator(device="cuda").manual_seed(999), sgc["batch"],
+                                         sgc["capacity"], sgc["width"], sgc["height"])
+    with torch.no_grad():
+        sg_before = train_sg.batch_loss(train_sg.make_model(sgc["num_layers"], 0, None, torch.device("cuda")), *held_sg,
+                                        sgc["width"], sgc["height"], 20, sgc["num_heads"]).item()
+    chunks = []
+    sg = run("train/superglue", lambda: train_sg.train_on_device(steps=SG_STEPS, chunk=SG_CHUNK, seed=0,
+                                                                  log_fn=chunks.append, device="cuda", **sgc))
+    with torch.no_grad():
+        sg_after = train_sg.batch_loss(sg, *held_sg, sgc["width"], sgc["height"], 20, sgc["num_heads"]).item()
+    emit({"phase": "training", "check": "superglue", **sgc, "steps": SG_STEPS, "chunk": SG_CHUNK,
+          "s_per_step": seconds["train/superglue"] / SG_STEPS, "chunks": chunks, "held_out_loss_before": sg_before,
+          "held_out_loss_after": sg_after, "launches": launches["train/superglue"], "card": smi})
+    if not sg_after < sg_before:
+        bad.append(f"superglue: held-out loss {sg_before} -> {sg_after}")
+    if launches["train/superglue"]:
+        bad.append(f"superglue training launched {launches['train/superglue']} (kernels=False: none)")
+
+    # --- export of the frame step, reload, run ----------------------------------
+    images = render_sequence(2, H, W, FX, seed=0)[0]
+    a, b = (torch.from_numpy(im).cuda().float() / 255.0 for im in images)
+    sg_state = sg_mod.load_weights(SG_WEIGHTS)
+    meta = sg_mod.checkpoint_meta(SG_WEIGHTS)
+    kw = dict(capacity=1024, max_keypoints=1000, threshold=1e-4, sinkhorn_iterations=20,
+              match_threshold=sg_mod.checkpoint_threshold(SG_WEIGHTS) or 0.5, num_heads=meta[1] if meta else 4,
+              device="cuda")
+    path = os.path.join(workdir, "frame_step.pt2")
+    exported = run("train/export_trace", lambda: sp_export.export_frame_step(path, sp_state, sg_state, H, W, **kw))
+    nodes = sum(1 for n in exported.graph.nodes if "stage_conv" in str(n.target))
+    loaded = run("train/export_load", lambda: sp_export.load_frame_step(path))
+    with torch.no_grad():
+        eager = sp_export.build_frame_step(sp_state, sg_state, H, W, **kw)(a, b)
+        got = run("train/export", lambda: loaded(a, b))
+    same = all(torch.equal(x, y) for x, y in zip(got, eager))
+    cfg = front_end_config(Configs)
+    cfg.runtime.compute_dtype = "float32"
+    ext = NeuralExtractor(cfg, make_pinhole(W, H, FX, FX, W / 2, H / 2), device="cuda")
+    b0, b1 = ext.extract(images[0]), ext.extract(images[1])
+    m = ext.match(b0, b1, outlier_rejection=False)
+    k0, k1, idx1 = (t.cpu().numpy() for t in got[:3])
+
+    def kset(k):
+        return set(map(tuple, k[np.any(k != 0, axis=1)]))
+
+    overlap = [len(kset(k) & kpt_set(bank)) / max(len(kset(k)), len(kpt_set(bank)), 1)
+               for k, bank in ((k0, b0), (k1, b1))]
+    pairs = {(tuple(k0[i]), tuple(k1[idx1[i]])) for i in np.nonzero(idx1 >= 0)[0]}
+    ref_pairs = pair_set(b0, b1, m)
+    agree = len(pairs & ref_pairs) / max(len(pairs), len(ref_pairs), 1)
+    el = launches["train/export"]
+    emit({"phase": "training", "check": "export", "size": [H, W], "stage_conv_nodes": nodes,
+          "outputs_equal_eager": same, "keypoint_overlap_extractor": overlap, "matches": len(pairs),
+          "matches_extractor": len(ref_pairs), "match_agreement_extractor": agree, "launches": el,
+          "trace_s": seconds["train/export_trace"], "load_s": seconds["train/export_load"],
+          "run_ms": 1e3 * seconds["train/export"], "file_mb": os.path.getsize(path) / 2**20, "card": smi})
+    if nodes != 6 or not same:
+        bad.append(f"export: {nodes} stage_conv nodes (6), outputs equal to eager: {same}")
+    if el.get("stage1_conv") != 2 or el.get("stage_conv") != 4:
+        bad.append(f"export: the reloaded program launched {el} (stage kernel 6 times, 3 an image)")
+    if min(overlap) < 0.95 or agree < 0.90 or len(pairs) < MIN_INLIERS:
+        bad.append(f"export vs NeuralExtractor: overlap {overlap} (>= 0.95), agreement {agree} (>= 0.90), "
+                   f"{len(pairs)} matches")
+
+    dp_launches, dp_bad = join_train_ranks(workdir, procs, dp_mask, smi)
+    launches.update(dp_launches)
+    bad += dp_bad
+    emit({"phase": "training", "check": "seconds", **seconds, "phase_s": time.perf_counter() - t_phase, "card": smi})
+    if bad:
+        raise AssertionError("training: " + "; ".join(bad))
+    return {k: v for k, v in launches.items() if k in ("train/pretrain", "train/finetune", "train/superglue",
+                                                       "train/export") or k.startswith("train/dp")}
+
+
 def stereo_columns(vo):
     """Per keyframe (by frame id), the rows of its keypoints that hold a
     gated right x (``u_right > 0``): the stereo seeds."""
@@ -4720,6 +5232,11 @@ def main() -> int:
         i = sys.argv.index("--mesh-rank")
         rank, world, backend, workdir = sys.argv[i + 1 : i + 5]
         mesh_rank(int(rank), int(world), backend, workdir)
+        return 0
+    if "--train-rank" in sys.argv:
+        i = sys.argv.index("--train-rank")
+        rank, world, backend, workdir = sys.argv[i + 1 : i + 5]
+        train_rank(int(rank), int(world), backend, workdir)
         return 0
     if "--metric-side" in sys.argv:
         metric_side(sys.argv[sys.argv.index("--metric-side") + 1])
@@ -4867,6 +5384,15 @@ def main() -> int:
             return 1
         print(smi, flush=True)
         return 0
+    if "--only-training" in sys.argv:
+        try:
+            training_phase(smi)
+        except AssertionError as e:
+            emit({"phase": "training", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
     if "--only-ba" in sys.argv:
         torch.use_deterministic_algorithms(True, warn_only=True)
         _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
@@ -4911,8 +5437,9 @@ def main() -> int:
     point_reduce = timed("global_ba", global_ba_phase, smi, on_failure={}).get("point_reduce", 0)
     mesh_launches = timed("mesh", mesh_phase, smi, on_failure={})
     sequence_launches = timed("sequence", sequence_phase, smi, on_failure={})
+    training_launches = timed("training", training_phase, smi, on_failure={})
     by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches, **extras_launches,
-               **multi_seq_launches, **mesh_launches, **sequence_launches}
+               **multi_seq_launches, **mesh_launches, **sequence_launches, **training_launches}
     rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
     # the sorted kernel's launches are those of global_optimize's full BA;
     # the unsorted kernel runs only where "pallas" is asked for

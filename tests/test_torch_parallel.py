@@ -1,7 +1,7 @@
 """The port's mesh paths (``ur_mvo_tpu_torch.parallel``: ``mesh``,
 ``dist_ba``, ``dist_matching``, ``MultiSequenceVO(mesh=)``,
-``Backend.global_optimize(mesh=)``) at world 2 over gloo on the CPU,
-against the JAX package on ``make_mesh(2)`` of the 8 virtual CPU devices
+``Backend.global_optimize(mesh=)``, ``train_step.make_dp_train_step``) at
+world 2 over gloo on the CPU, against the JAX package on ``make_mesh(2)`` of the 8 virtual CPU devices
 and against the port's own unsharded calls.
 
 One world of two ranks serves the whole module: the module fixture writes
@@ -16,7 +16,8 @@ Tolerances: ``tests/test_parallel.py``'s for the BA (poses 1e-3, equal
 inlier counts: shard order changes the summation path); matches and the
 oracle lanes bit for bit (each lane's work is its own); the neural lanes'
 banks at ``tests/test_torch_multi_seq.py``'s batched-lane tolerance (the
-CPU convolution blocks by batch); ``global_optimize`` 1e-3.
+CPU convolution blocks by batch); ``global_optimize`` 1e-3; the
+data-parallel train step's at its test.
 """
 
 import functools
@@ -43,6 +44,9 @@ from ur_mvo_tpu_torch.parallel.multi_seq import MultiSequenceVO, stack_lanes
 from ur_mvo_tpu_torch.runtime import backend as backend_mod
 from ur_mvo_tpu_torch.runtime.backend import Backend
 from ur_mvo_tpu_torch.runtime.extractor import OracleExtractor
+from ur_mvo_tpu_torch.models import train_superpoint as train_sp
+from ur_mvo_tpu_torch.models.superpoint import SuperPoint
+from ur_mvo_tpu_torch.parallel.train_step import make_dp_train_step
 from ur_mvo_tpu_torch.weights import ba_problem_from_numpy, feature_bank_from_numpy, superglue_from_numpy
 from tests.torch_mesh_util import CAM, make_drifted_map, one_rank_mesh
 
@@ -114,6 +118,21 @@ def _global_run(inp, mesh):
     return {**{f: getattr(b.store, f).copy() for f in ("kf_R", "kf_t", "mp_pos")}, "full_ba": b.last_full_ba}
 
 
+def _dp_step(inp, mesh):
+    """One descriptor fine-tuning step on ``inp``'s batch: through
+    ``make_dp_train_step`` on ``mesh``, or the single-process step without
+    one. The loss, and the descriptor head's gradients and parameters after
+    the step."""
+    model = SuperPoint()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in inp["sp"].items()})
+    opt = train_sp.make_optimizer(model)
+    step = train_sp.make_train_step(opt) if mesh is None else make_dp_train_step(opt, mesh)
+    loss = step(model, {k: torch.from_numpy(v) for k, v in inp["dp_batch"].items()})
+    head = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    return {"loss": float(loss), "params": {n: p.detach().numpy().copy() for n, p in head.items()},
+            "grads": {n: p.grad.numpy().copy() for n, p in head.items()}}
+
+
 def _rank_main(workdir, rank, world):
     """One rank: every case on the mesh, its results pickled to
     ``rank{rank}.pkl``."""
@@ -153,6 +172,7 @@ def _rank_main(workdir, rank, world):
     out["neural"] = _neural_run(mesh)
 
     out["global"] = _global_run(inp, mesh)
+    out["dp"] = _dp_step(inp, mesh)
 
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -218,6 +238,9 @@ def _inputs():
         gts.append(np.einsum("ij,njk->nik", off, T_wc))
     jstore, order = make_drifted_map()
     bcfg = dict(ba_iterations_phase1=4, ba_iterations_phase2=2)
+    sp = SuperPoint().init_random(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    dp_batch = train_sp.make_batch(g, torch.rand((4, 64, 80), generator=g), translation=0.3)
     inp = {
         "ba": {k: (v[1], v[2]) for k, v in ba.items()},
         "sg": jax.tree.map(np.asarray, params),
@@ -225,6 +248,8 @@ def _inputs():
         "X": [np.asarray(make_landmarks(400, along=2.0, seed=10 + s)) for s in range(ORACLE_S)],
         "gts": gts, "ts": np.asarray(ts),
         "store": pickle.dumps(map_store_from(jstore)), "cam": CAM, "bcfg": bcfg,
+        "sp": {k: v.numpy() for k, v in sp.state_dict().items()},
+        "dp_batch": {k: v.numpy() for k, v in dp_batch.items()},
     }
     return inp, {"ba": ba, "params": params, "banks": (stack(jb0), stack(jb1)), "order": order}
 
@@ -285,6 +310,7 @@ def _port_references(workdir):
     refs["oracle"] = _oracle_run(inp, None)
     refs["neural"] = _neural_run(None)
     refs["global"] = _global_run(inp, None)
+    refs["dp"] = _dp_step(inp, None)
     with open(os.path.join(workdir, "port_refs.pkl"), "wb") as f:
         pickle.dump(refs, f)
 
@@ -527,6 +553,32 @@ def test_global_optimize_mesh_world2(world2):
         assert not np.allclose(got["kf_t"][order], store.kf_t[order])
         for f in ("kf_R", "kf_t", "mp_pos"):
             np.testing.assert_array_equal(got[f], ranks[0]["global"][f])
+
+
+def test_dp_train_step_world2(world2):
+    """``make_dp_train_step`` at world 2, each rank on half of a 4-image
+    batch, against the single-process step on the whole batch: the loss
+    (the whole batch's: each rank divides by the whole batch's valid-cell
+    count) within rtol 1e-5, the summed gradients within 1e-5 of the
+    largest, the parameters after one Adam step within 1e-6 where the
+    gradient is not within 100x of Adam's epsilon (there, lr); both
+    replicas bit for bit equal. The halves' valid-cell counts differ, so a
+    mean of the ranks' own losses would miss."""
+    ranks, refs = world2
+    ref = refs["port"]["dp"]
+    mask = refs["inputs"]["dp_batch"]["mask"]
+    assert mask[:2].sum() != mask[2:].sum()
+    scale = max(np.abs(g).max() for g in ref["grads"].values())
+    for r in ranks:
+        got = r["dp"]
+        np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
+        assert set(got["params"]) == set(ref["params"]) == {"convDa.weight", "convDa.bias", "convDb.weight",
+                                                             "convDb.bias"}
+        for k, g in ref["grads"].items():
+            np.testing.assert_allclose(got["grads"][k] / scale, g / scale, atol=1e-5, err_msg=k)
+            limit = np.where(np.abs(g) > 1e-6, 1e-6, 1e-3)
+            assert np.all(np.abs(got["params"][k] - ref["params"][k]) <= limit), k
+            np.testing.assert_array_equal(got["params"][k], ranks[0]["dp"]["params"][k])
 
 
 if __name__ == "__main__":

@@ -252,6 +252,17 @@ def resolve_matching_threshold(sg_cfg) -> float:
     return 0.5 if thr is None else thr
 
 
+def save_npz(path: str, state: "nn.Module | Dict[str, torch.Tensor]") -> None:
+    """A ``SuperGlue`` (or its state dict) as the JAX package's native
+    ``.npz`` (``superglue.save_npz``: the flat keys, float32, with the
+    native marker), which both packages' ``load_weights`` read."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    flat = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
+    flat[_NATIVE_MARKER] = np.asarray(1)
+    np.savez(path, **flat)
+
+
 def load_npz(path: str, num_layers: int = 9, num_heads: int = 4) -> Dict[str, torch.Tensor]:
     """State dict of a native .npz checkpoint. Shipped checkpoints store
     float16; values are upcast to float32 at load. The embedded

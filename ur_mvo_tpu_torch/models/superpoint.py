@@ -17,7 +17,7 @@ gives the bf16 path of ``RuntimeConfig.compute_dtype = "bfloat16"``.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -111,10 +111,14 @@ class SuperPoint(nn.Module):
             conv.bias.zero_()
         return self
 
-    def backbone(self, image: torch.Tensor) -> torch.Tensor:
-        """Shared encoder: (B, H, W, 1) -> (B, H/8, W/8, 128), NHWC."""
+    def backbone(self, image: torch.Tensor, packed: Optional[list[PackedStage]] = None) -> torch.Tensor:
+        """Shared encoder: (B, H, W, 1) -> (B, H/8, W/8, 128), NHWC.
+        ``packed``: stages 1-3's weights in the kernel's layout, where the
+        caller holds them (an exported program's buffers); by default the
+        cache of :meth:`_packed_stages`."""
         x = image
-        packed = self._packed_stages() if self.kernels and x.is_cuda else [None] * len(_STAGES)
+        if packed is None:
+            packed = self._packed_stages() if self.kernels and x.is_cuda else [None] * len(_STAGES)
         for (na, nb), p in zip(_STAGES, packed):
             ca, cb = getattr(self, na), getattr(self, nb)
             x = stage_conv(x, ca.weight, ca.bias, cb.weight, cb.bias, plain=not self.kernels, packed=p)
@@ -133,7 +137,8 @@ class SuperPoint(nn.Module):
         x = F.relu(self.convDa(_nchw(feat)))
         return _l2_normalize(_nhwc(self.convDb(x)))
 
-    def forward(self, image: torch.Tensor, nms_radius: int = 4, return_raw_scores: bool = False) -> tuple:
+    def forward(self, image: torch.Tensor, nms_radius: int = 4, return_raw_scores: bool = False,
+                packed: Optional[list[PackedStage]] = None) -> tuple:
         """(B, H, W, 1) image in [0, 1] -> (scores (B, H, W) float32 after
         NMS, descriptors (B, Hc, Wc, 256) float32). The network runs in the
         parameter dtype; scores are cast to float32 before NMS. With
@@ -141,7 +146,7 @@ class SuperPoint(nn.Module):
         zeroes the 3x3 neighbourhoods that sub-pixel refinement needs
         (``ops.keypoints.select_keypoints(raw_scores=...)``)."""
         x = image.to(self.dtype)
-        feat = self.backbone(x)
+        feat = self.backbone(x, packed)
         scores = self.detector_head(feat).float()
         desc = self.descriptor_head(feat).float()
         if return_raw_scores:
@@ -160,3 +165,14 @@ def load_torch_weights(path: str) -> Dict[str, torch.Tensor]:
         state = {k: v.float().cpu() for k, v in torch.load(path, map_location="cpu", weights_only=True).items()}
     keys = [f"{name}.{p}" for name, _, _, _ in _ENCODER + _HEADS for p in ("weight", "bias")]
     return {k: state[k] for k in keys}
+
+
+def save_npz(state: Union[nn.Module, Dict[str, torch.Tensor]], path: str) -> None:
+    """A ``SuperPoint`` (or its state dict) as the JAX package's ``.npz``
+    (``superpoint.save_npz``: OIHW ``{name}.weight`` / ``{name}.bias``, the
+    MagicLeap keys, float32), which both packages' ``load_torch_weights``
+    read."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    keys = [f"{name}.{p}" for name, _, _, _ in _ENCODER + _HEADS for p in ("weight", "bias")]
+    np.savez(path, **{k: state[k].detach().float().cpu().numpy() for k in keys})

@@ -15,7 +15,8 @@ rows in order, without atomics (bit for bit repeatable);
 :func:`point_reduce` takes rows in any order and adds with atomics.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(counted as ``point_reduce_sorted`` / ``point_reduce``) or raises.
+(counted as ``point_reduce_sorted`` / ``point_reduce``) or raises, also
+where an input requires grad under grad mode (no gradient).
 ``plain=True`` asks for the plain version on any device.
 """
 
@@ -46,6 +47,7 @@ def _check(A, Vp, ids, what):
     O = A.shape[0]
     if A.shape != (O, 18) or Vp.shape != (O, 12) or any(t.shape != (O,) for t in ids):
         raise ValueError(f"{what}: shapes A{tuple(A.shape)} Vp{tuple(Vp.shape)} ids {[tuple(t.shape) for t in ids]}")
+    cuda_ext.refuse_grad(what, A, Vp)
 
 
 def point_reduce_sorted(A: torch.Tensor, Vp: torch.Tensor, pt: torch.Tensor, slot: torch.Tensor,

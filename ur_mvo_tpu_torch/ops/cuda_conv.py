@@ -12,12 +12,20 @@ W % 128 == 0.
 and the biases in any float dtype; they are rounded to the activation
 dtype, as the TPU kernel rounds them to bf16, and packed into the kernel's
 layout by :func:`pack_stage`.
+
+The kernel is the ``torch.library`` op ``ur_mvo_tpu_torch::stage_conv``
+(:func:`stage_conv_op`): its CUDA implementation launches the kernel on the
+packed weights, its CPU implementation is the plain version, a fake
+implementation gives ``torch.export`` the output's shape, and its gradient
+is the JAX package's (``_stage123_bwd``): the plain version recomputed from
+the saved input and raw weights, and its VJP. There is no backward kernel,
+as the TPU has none.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -98,14 +106,62 @@ def pack_stage(wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor, bb: torch.T
     return PackedStage(dtype, wa.shape[1], wa_k, ba.to(dtype).float().contiguous(), wb_k, bb.to(dtype).float().contiguous())
 
 
+@torch.library.custom_op("ur_mvo_tpu_torch::stage_conv", mutates_args=())
+def stage_conv_op(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor, bb: torch.Tensor,
+                  packed: List[torch.Tensor]) -> torch.Tensor:
+    """One fused stage as a ``torch.library`` op. ``packed`` holds
+    :class:`PackedStage`'s four tensors for a CUDA ``x`` and is empty for
+    a CPU one. This body is the CPU implementation: the plain version."""
+    return stage_conv_plain(x, wa, ba, wb, bb)
+
+
+@stage_conv_op.register_kernel("cuda")
+def _stage_conv_cuda(x, wa, ba, wb, bb, packed):
+    out = cuda_ext.extension().stage_conv(x.contiguous(), *packed)
+    cuda_ext.count("stage1_conv" if x.shape[-1] == 1 else "stage_conv")
+    return out
+
+
+@stage_conv_op.register_fake
+def _stage_conv_fake(x, wa, ba, wb, bb, packed):
+    B, H, W, _ = x.shape
+    return x.new_empty((B, H // 2, W // 2, wb.shape[0]))
+
+
+def _stage_conv_setup(ctx, inputs, output):
+    x, wa, ba, wb, bb, packed = inputs
+    ctx.save_for_backward(x, wa, ba, wb, bb)
+    ctx.n_packed = len(packed)
+
+
+def _stage_conv_backward(ctx, grad):
+    """``_stage123_bwd``: the plain version's VJP at the saved inputs, the
+    incoming gradient cast to the output's dtype; its convolutions in
+    float32 as the forward's are (no TF32)."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:5]
+    with torch.enable_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        args = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = stage_conv_plain(*args)
+        wanted = [a for a in args if a.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)) if wanted else ())
+    return (*(next(grads) if n else None for n in need), [None] * ctx.n_packed)
+
+
+stage_conv_op.register_autograd(_stage_conv_backward, setup_context=_stage_conv_setup)
+
+
 def stage_conv(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor, bb: torch.Tensor,
                plain: bool = False, packed: Optional[PackedStage] = None) -> torch.Tensor:
-    """One fused encoder stage. A CPU tensor runs :func:`stage_conv_plain`;
-    a CUDA tensor launches the kernel or raises, with the weights from
-    ``packed`` when given (else packed for this call). ``plain=True`` asks
-    for the plain version on any device (the on-card comparison)."""
-    if plain or x.device.type == "cpu":
+    """One fused encoder stage through :func:`stage_conv_op`. A CPU tensor
+    runs :func:`stage_conv_plain`; a CUDA tensor launches the kernel or
+    raises, with the weights from ``packed`` when given (else packed for
+    this call). ``plain=True`` asks for the plain version on any device (the
+    on-card comparison)."""
+    if plain:
         return stage_conv_plain(x, wa, ba, wb, bb)
+    if x.device.type == "cpu":
+        return stage_conv_op(x, wa, ba, wb, bb, [])
     if x.device.type != "cuda":
         raise ValueError(f"stage_conv: unsupported device {x.device}")
     B, H, W, Cin = x.shape
@@ -120,6 +176,4 @@ def stage_conv(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Te
         packed = pack_stage(wa, ba, wb, bb, x.dtype)
     elif packed.dtype != x.dtype or packed.cin != Cin:
         raise ValueError(f"stage_conv: weights packed for {packed.dtype}, Cin={packed.cin}; got {x.dtype}, Cin={Cin}")
-    out = cuda_ext.extension().stage_conv(x.contiguous(), packed.wa, packed.ba, packed.wb, packed.bb)
-    cuda_ext.count("stage1_conv" if Cin == 1 else "stage_conv")
-    return out
+    return stage_conv_op(x, wa, ba, wb, bb, [packed.wa, packed.ba, packed.wb, packed.bb])

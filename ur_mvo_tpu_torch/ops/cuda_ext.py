@@ -12,6 +12,10 @@ unchanged build.
 Nothing here runs when the module is imported, and nothing here is
 reached on the CPU: the CPU path runs the kernels' plain versions.
 
+Only the stage kernel has a gradient (``cuda_conv.stage_conv_op``); the
+other wrappers call :func:`refuse_grad` before they launch, so that a
+CUDA input on an autograd path raises instead of coming back detached.
+
 ``LAUNCHES`` counts, per kernel name, the wrapper calls that launched a
 kernel in this process; a run resets it to show which kernels its main
 path went through.
@@ -22,6 +26,8 @@ from __future__ import annotations
 import collections
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ur_mvo_tpu_torch_ext"
@@ -67,3 +73,14 @@ def extension(verbose: bool = False):
 
 def count(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need the gradient of kernel ``what``: grad
+    mode is on and one of ``tensors`` requires grad. These kernels have none
+    (no TPU kernel had a VJP); their output would come back detached."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no gradient and an input requires grad; run it under "
+            "torch.no_grad(), or take the plain version (plain=True, or the model's kernels=False)"
+        )

@@ -2,7 +2,8 @@
 beside its plain version (counterpart of ``ur_mvo_tpu.ops.pallas_kernels``).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(``csrc/attention.cu``, ``csrc/sinkhorn.cu``) or raises.
+(``csrc/attention.cu``, ``csrc/sinkhorn.cu``) or raises, also where an
+input requires grad under grad mode (the kernels have no gradient).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} not supported")
     if split and q.dtype != torch.bfloat16:
         raise ValueError(f"attention: the key-group kernel takes bfloat16, not {q.dtype}")
+    cuda_ext.refuse_grad("attention", q, k, v)
     # bool (or uint8) as it is: the kernel reads a byte a key
     out = cuda_ext.extension().attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_valid.contiguous(),
                                          1.0 / math.sqrt(d), split)
@@ -93,6 +95,7 @@ def sinkhorn(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor
     M, N = couplings.shape
     if couplings.dtype != torch.float32 or log_mu.shape != (M,) or log_nu.shape != (N,):
         raise ValueError("sinkhorn: expects float32 (M, N) couplings with (M,) and (N,) marginals")
+    cuda_ext.refuse_grad("sinkhorn", couplings, log_mu, log_nu)
     out = cuda_ext.extension().sinkhorn(
         couplings.contiguous(), log_mu.to(torch.float32).contiguous(), log_nu.to(torch.float32).contiguous(), int(iterations)
     )

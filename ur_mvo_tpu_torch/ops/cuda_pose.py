@@ -68,6 +68,7 @@ def pose_gn(
         raise ValueError(
             f"pose_gn: shapes valid{tuple(valid.shape)} R0{tuple(R_cw0.shape)} t0{tuple(t_cw0.shape)} for B={B}, N={N}"
         )
+    cuda_ext.refuse_grad("pose_gn", R_cw0, t_cw0, X, uv)
     total = _step_total.get(X.device)
     if total is None:
         total = _step_total[X.device] = torch.zeros(1, dtype=torch.int64, device=X.device)

@@ -120,7 +120,7 @@ class MultiSequenceVO:
             sp.load_state_dict(superpoint.load_torch_weights(sp_cfg.weights_path))
         else:
             sp.init_random(init_gen)
-        self.superpoint = sp.to(device=dev, dtype=dt).eval()
+        self.superpoint = sp.to(device=dev, dtype=dt).eval().requires_grad_(False)
         self.num_heads = sg_cfg.num_heads
         if sg_cfg.weights_path:
             # a native checkpoint's embedded architecture wins over the config
@@ -131,7 +131,7 @@ class MultiSequenceVO:
                 self.num_heads = meta[1]
         else:
             sg = SuperGlue(sg_cfg.num_layers, kernels=kernels).init_random(init_gen)
-        self.superglue = sg.to(device=dev, dtype=dt).eval()
+        self.superglue = sg.to(device=dev, dtype=dt).eval().requires_grad_(False)
 
         # "auto": without trained matcher weights SuperGlue cannot match, so
         # mutual-NN; any other name than "nn" runs SuperGlue

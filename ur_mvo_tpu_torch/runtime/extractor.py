@@ -86,7 +86,7 @@ class NeuralExtractor:
             sp.load_state_dict(superpoint.load_torch_weights(sp_cfg.weights_path))
         else:
             sp.init_random(init_gen)
-        self.superpoint = sp.to(device=dev, dtype=dt).eval()
+        self.superpoint = sp.to(device=dev, dtype=dt).eval().requires_grad_(False)
 
         self.num_heads = sg_cfg.num_heads
         if sg_cfg.weights_path:
@@ -99,7 +99,7 @@ class NeuralExtractor:
                 self.num_heads = meta[1]
         else:
             sg = SuperGlue(sg_cfg.num_layers, kernels=kernels).init_random(init_gen)
-        self.superglue = sg.to(device=dev, dtype=dt).eval()
+        self.superglue = sg.to(device=dev, dtype=dt).eval().requires_grad_(False)
 
         # "auto": a randomly initialized SuperGlue cannot match, so
         # without trained matcher weights use mutual-NN

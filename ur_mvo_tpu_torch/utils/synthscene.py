@@ -1,11 +1,13 @@
-"""Synthetic 3D multi-plane scene renderer (the port's own copy of the
-rendering half of ``ur_mvo_tpu.utils.synthscene``).
+"""Synthetic 3D multi-plane scene renderer and ground-truth correspondence
+(the port's own copy of ``ur_mvo_tpu.utils.synthscene``).
 
 Several finite textured planes at different depths plus an infinite
 background, so views contain depth discontinuities and occlusion, with
 optional per-frame brightness decay. Every render also returns per-pixel
-metric depth. Everything is vectorized host-side numpy: rendering makes
-test and smoke-run inputs, it is not a device workload. Rotations come
+metric depth, which gives exact, occlusion-checked pixel transfer between
+views (:func:`gt_assignment`, the SuperGlue trainer's supervision).
+Everything is vectorized host-side numpy: rendering makes test, training
+and smoke-run inputs, it is not a device workload. Rotations come
 from a numpy Rodrigues (:func:`so3_exp`), so nothing here needs JAX.
 """
 
@@ -211,3 +213,98 @@ def render_sequence(
             return images, poses, depths, images_r, depths_r
         return images, poses, depths, images_r
     return images, poses, depths
+
+
+# ---------------------------------------------------------------------------
+# Exact ground-truth correspondence between two rendered views
+# ---------------------------------------------------------------------------
+
+def transfer_points(
+    kpts: np.ndarray,
+    depth_map: np.ndarray,
+    T_i: np.ndarray,
+    T_j: np.ndarray,
+    fx: float,
+    cx: float,
+    cy: float,
+    depth_map_j: Optional[np.ndarray] = None,
+    occlusion_tol: float = 0.03,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Transfer pixels from view i to view j via rendered depth.
+
+    ``kpts`` (N, 2) pixels in view i; returns ``(uv_j (N, 2), visible (N,))``
+    where visibility requires positive depth in j, in-image bounds, and —
+    when ``depth_map_j`` is given — an occlusion test: the transferred
+    point's camera-z must match view j's depth buffer within
+    ``occlusion_tol`` (relative)."""
+    H, W = depth_map.shape
+    ui = np.clip(np.round(kpts[:, 0]).astype(int), 0, W - 1)
+    vi = np.clip(np.round(kpts[:, 1]).astype(int), 0, H - 1)
+    d = depth_map[vi, ui].astype(np.float64)
+    rays = np.stack([(kpts[:, 0] - cx) / fx, (kpts[:, 1] - cy) / fx, np.ones(len(kpts))], 1)
+    pc_i = rays * d[:, None]
+    Ri, ti = T_i[:3, :3], T_i[:3, 3]
+    Rj, tj = T_j[:3, :3], T_j[:3, 3]
+    pw = pc_i @ Ri.T + ti
+    pc_j = (pw - tj) @ Rj
+    zj = pc_j[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        uj = fx * pc_j[:, 0] / zj + cx
+        vj = fx * pc_j[:, 1] / zj + cy
+    visible = np.isfinite(d) & (d > 0) & (zj > 0.05)
+    visible &= (uj >= 0) & (uj <= W - 1) & (vj >= 0) & (vj <= H - 1)
+    if depth_map_j is not None:
+        uc = np.clip(np.round(np.nan_to_num(uj)).astype(int), 0, W - 1)
+        vc = np.clip(np.round(np.nan_to_num(vj)).astype(int), 0, H - 1)
+        zbuf = depth_map_j[vc, uc].astype(np.float64)
+        visible &= np.abs(zbuf - zj) < occlusion_tol * np.maximum(zj, 1e-6) + 0.02
+    uv_j = np.stack([np.nan_to_num(uj), np.nan_to_num(vj)], 1).astype(np.float32)
+    return uv_j, visible
+
+
+def gt_assignment(
+    kpts0: np.ndarray,
+    valid0: np.ndarray,
+    kpts1: np.ndarray,
+    valid1: np.ndarray,
+    depth0: np.ndarray,
+    T0: np.ndarray,
+    T1: np.ndarray,
+    fx: float,
+    cx: float,
+    cy: float,
+    depth1: Optional[np.ndarray] = None,
+    tol_px: float = 3.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Ground-truth partial assignment between two extracted keypoint sets.
+
+    Returns ``(tgt0 (K,), tgt1 (K,))`` in the convention of
+    ``models/train_superglue.py``: ``tgt0[i]`` is the bank-1 column matched
+    to row i (K = dustbin/unmatched), ``tgt1[j]`` the bank-0 row for column
+    j. A pair matches when the depth-transferred bank-0 point lands within
+    ``tol_px`` of a bank-1 keypoint, one-to-one by greedy nearest distance.
+    """
+    K = kpts0.shape[0]
+    tgt0 = np.full((K,), K, np.int32)
+    tgt1 = np.full((K,), K, np.int32)
+    uv_j, vis = transfer_points(kpts0, depth0, T0, T1, fx, cx, cy, depth_map_j=depth1)
+    rows = np.nonzero(valid0 & vis)[0]
+    cols = np.nonzero(valid1)[0]
+    if len(rows) == 0 or len(cols) == 0:
+        return tgt0, tgt1
+    d2 = ((uv_j[rows, None, :] - kpts1[None, cols, :]) ** 2).sum(-1)
+    # greedy one-to-one by ascending distance
+    order = np.argsort(d2, axis=None)
+    tol2 = tol_px * tol_px
+    used_r = np.zeros(len(rows), bool)
+    used_c = np.zeros(len(cols), bool)
+    for flat in order:
+        r, c = divmod(int(flat), len(cols))
+        if d2[r, c] > tol2:
+            break
+        if used_r[r] or used_c[c]:
+            continue
+        used_r[r] = used_c[c] = True
+        tgt0[rows[r]] = cols[c]
+        tgt1[cols[c]] = rows[r]
+    return tgt0, tgt1

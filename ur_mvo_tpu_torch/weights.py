@@ -1,9 +1,10 @@
-"""Parameters carried across from the JAX package.
+"""Parameters carried across from the JAX package, and back.
 
-Each function takes a JAX parameter pytree as numpy arrays
+``*_from_numpy`` takes a JAX parameter pytree as numpy arrays
 (``jax.tree.map(np.asarray, params)``: nested dicts and lists of arrays)
 and returns the state dict of the port's module, so both packages can run
-on the same weights. Nothing here imports JAX.
+on the same weights; ``*_to_numpy`` goes the other way (a trained port
+model into the JAX package). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +44,36 @@ def superglue_from_numpy(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     ``desc_center``) -> ``SuperGlue`` state dict. The pytree's flat keys
     are the module's keys; weights stay (in, out)."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in _flatten(params).items()}
+
+
+def superpoint_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``SuperPoint`` state dict -> the ``superpoint`` pytree as numpy
+    (HWIO kernels): the inverse of :func:`superpoint_from_numpy`."""
+    names = dict.fromkeys(k.rsplit(".", 1)[0] for k in state)
+    return {n: {"w": np.transpose(state[f"{n}.weight"].detach().float().cpu().numpy(), (2, 3, 1, 0)),
+                "b": state[f"{n}.bias"].detach().float().cpu().numpy()} for n in names}
+
+
+def superglue_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``SuperGlue`` state dict -> the ``superglue`` pytree as numpy
+    (nested dicts, lists where a key part is an index): the inverse of
+    :func:`superglue_from_numpy`."""
+    tree: Dict[str, Any] = {}
+    for key, v in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v.detach().float().cpu().numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(c) for k, c in node.items()}
+
+    return lists(tree)
 
 
 # ---------------------------------------------------------------------------
