@@ -6,10 +6,11 @@ engines with the hybrid matcher, the tracking and map extras
 (local-map tracking, resolution buckets, sub-pixel peaks, patch
 descriptors, map snapshots), several sequences stepped lock-step, the
 mesh paths (sequences, pairs and a global BA sharded over ranks), the
-sequence entry points (chunked tracking, the command line), and training
+sequence entry points (chunked tracking, the command line), training
 and export (SuperPoint pretraining and fine-tuning through the stage op's
 gradient, SuperGlue training, the data-parallel step, the exported frame
-step).
+step), and the accuracy matrix through its command line with the shipped
+stereo checkpoint.
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -113,7 +114,7 @@ layers, bf16 compute. Phases, each printing one JSON line:
    launch the sorted kernel, keyframes and points within phase 7's limits
    of the same call with ``kernels=False``, keyframe ATE lower after it;
 10. metric (in a process of its own, ``--metric-side``, beside phases 9
-   and 13: its lines print when it ends): the metric setups through
+   and 13 and phase 18's processes: its lines print when it ends): the metric setups through
    ``UR_MVO(cfg, SensorSetup.STEREO | RGBD, device="cuda")`` with the production configuration and matcher
    ``hybrid`` (mutual-NN, SuperGlue's matches where NN has fewer than 40),
    under deterministic algorithms, launch counts reset just before each
@@ -235,7 +236,12 @@ layers, bf16 compute. Phases, each printing one JSON line:
    RMS within 1%, keyframe ATE with and without scale correction at most
    twice the single device's, with it below the pose graph alone's (its
    bending mode moves the map far past phase 7's limits between any two
-   routes); S = 3 on two ranks must raise. Each rank prints its launches and seconds a path; every rank
+   routes); S = 3 on two ranks must raise; then ``cli.bench_scaling``'s
+   count on its problem (32 frames, 8,192 points, 32,768 observations, 15
+   LM steps): the ``all_reduce`` calls and bytes that ``mesh.all_sum``
+   counted must be those its packed terms give (2 calls and 39,940 bytes a
+   step, the JAX source's 5 ``psum`` calls printed beside them; no time is
+   claimed). Each rank prints its launches and seconds a path; every rank
    must launch the stage kernels, attention, Sinkhorn and pose GN, and no
    shard's BA a point-reduce kernel. A rank that fails or outlives its
    deadline fails the phase.
@@ -295,6 +301,44 @@ layers, bf16 compute. Phases, each printing one JSON line:
    float32 ``NeuralExtractor``'s extract and match at phases 4-5's
    thresholds (overlap >= 0.95, agreement >= 0.90). Seconds a step of each
    trainer, the export's trace, load and run times.
+18. matrix (three processes of its own, ``--matrix-side DIR
+   mono|metric|long``, started with phase 10's and joined after it: their
+   lines print then): the accuracy
+   matrix through its command line, ``cli.bench_accuracy.main`` (the port
+   of ``scripts/bench_accuracy.py``, which takes deterministic algorithms on
+   CUDA itself), launch counts per cell and matcher: (a) the seven short
+   cells, ``mono/plane,mono/3d,mono/decay`` with ``nn,sg`` and
+   ``stereo/3d,stereo/decay,rgbd/3d,rgbd/decay`` with ``nn,hybrid``, seeds
+   11-13, 24 frames, each part into its own ``build/matrix/<part>.json``;
+   each
+   production column held to the gate of
+   ``tests/test_accuracy_gates.py::test_production_cell_zero_failures_and_bounded``
+   (no failed seed, mean under the cell's bound: ``mono/plane`` 0.12,
+   ``mono/3d`` 0.15, ``mono/decay`` 0.45, ``stereo/3d`` 0.60,
+   ``stereo/decay`` 0.65, ``rgbd/3d`` 0.15, ``rgbd/decay`` 0.25) and each
+   of its runs to phase 8's health (initialised, >= 3 keyframes, <= 6 frames
+   lost), the frames lost while the run's reference keyframe held fewer
+   than 6 triangulated points counted apart, as phase 14 counts them (a
+   collapsed map after a one-inlier frame became a keyframe, which the JAX
+   package shows on the same scenes: ROADMAP C11, C17); every ``sg`` / ``hybrid`` column must launch the stage kernels,
+   attention, Sinkhorn and pose GN, every ``nn`` column the stage kernels
+   and pose GN and never attention or Sinkhorn (it loads no SuperGlue
+   weights); the table of cells (mean, spread, failed, runs, host ms a
+   frame) beside ``ACCURACY.json``'s means (the JAX package on the CPU),
+   and production mean over ``nn`` mean beside the JAX rule's 1.10, a
+   reading; (b) each seed's ATE of the three ``3d`` cells equal to the
+   digit (the CLI's four) to phase 8's kernel run (``mono/3d``) and phase
+   10's (``stereo/3d``, ``rgbd/3d``), where those phases ran; (c)
+   ``--long --cells mono/long --matchers sg --seeds 1``: seed 11's online
+   ATE and its ATE after ``global_optimize`` equal to phase 9's to the
+   digit; (d) the shipped stereo checkpoint on
+   ``tests/test_shipped_superglue_stereo.py``'s protocol (the plane scene
+   of ``cli.make_synthetic_dataset.render_plane_sequence`` with a
+   radtan-distorted right lens, k1 -0.28, k2 0.07, baseline 0.1, seed 0,
+   24 frames at 240x320, the right camera's rectify map from that lens,
+   ``superglue_v4stereo.npz``, deterministic algorithms): initialised,
+   >= 3 keyframes, keyframe ATE (scale-corrected) finite and under 0.6,
+   every kernel launched. The phase's seconds beside its budget of 150.
 
 Then each phase's seconds, the ``kernels`` line (launches from the engine
 run; the sorted reduction's from the long map's ``global_optimize``, the
@@ -307,17 +351,27 @@ each rank's lanes and match, phase 16's ``chunk`` (inside
 ``process_chunk``) and ``cli/run_vo``, ``cli/run_vo_chunk``,
 ``cli/run_vo_multi``, and phase 17's ``train/pretrain``,
 ``train/finetune``, ``train/superglue``, ``train/export`` (the reloaded
-program's run) and ``train/dp/w1``, ``train/dp/w2/r0``, ``train/dp/w2/r1``), the ``nvidia-smi`` name/power-limit line,
+program's run) and ``train/dp/w1``, ``train/dp/w2/r0``, ``train/dp/w2/r1``,
+and phase 18's ``matrix/<setup>/<scene>/<matcher>``, ``matrix/mono/long/sg``
+and ``matrix/v4stereo``), the ``nvidia-smi`` name/power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. A failed check prints a
 ``{"phase": ..., "failed": ...}`` line and the run goes on to the next
 phase; at the end any failure makes the exit code 1 and leaves the
 ``kernels`` and last lines out. An error that is not a check raises. Without CUDA it exits
 with code 2 before doing anything. ``--only-pose-gn`` builds, checks the
 pose-GN kernel and stops: the short first run after an edit to it.
-``--engine-seeds 0,11,12 [--repeats N] [--deterministic]`` builds and runs the
-engine N times on each of those scenes (and once on the plain versions),
-printing each run's keyframes, frames lost and ATE: the spread from one run
-to the next.
+``--engine-seeds 0,11,12 [--repeats N] [--deterministic] [--scene plane|decay]``
+builds and runs the engine N times on each of those scenes of the mono/3d
+family (or another mono cell's; and once on the plain versions),
+printing each run's keyframes, frames lost (and at which frames), the fused
+step's matches and inliers a frame, and ATE: the spread from one run
+to the next. ``--swap stage_conv,attention,sinkhorn,pose_gn`` adds a run
+with each named kernel alone on its plain version (``plain_<name>``),
+``--only ...`` a run with each named kernel alone left on (``only_<name>``),
+and ``--audit`` holds every call of the first kernel run against the plain
+version on the same inputs (each kernel's largest error, pose GN's inlier
+counts, the matches Sinkhorn's and the whole matcher's scores decode to):
+the bisect of a kernel run that fares unlike its plain run.
 ``--long-seeds 11,12,...,20 [--plain]`` runs the long protocol on those
 scenes, on the kernels or on their plain versions, printing each run's
 online and after-``global_optimize`` ATE: the seed-to-seed spread behind
@@ -337,7 +391,13 @@ file into one and run it there to take that kernel's digest).
 ``--only-extras`` builds and runs phase 13 alone; ``--only-multi-seq``
 phase 14; ``--only-mesh`` phase 15 (with phase 14's S = 3 run and phase
 9's long map for its references); ``--only-sequence`` phase 16 (with its
-own per-frame runs); ``--only-training`` phase 17; ``--multi-seq-witness`` phase 14's lanes under the variants of
+own per-frame runs); ``--only-training`` phase 17; ``--only-matrix`` phase
+18 (in this process; without phases 8-10 its 3d cells and seed 11 of
+``mono/long`` are printed alone); ``--deterministic-witness`` names the
+ops that deterministic algorithms flag on ``mono/3d`` seed 11 (the first
+to raise without ``warn_only``, every warning with it) and times host ms a
+frame on seeds 11-13 with the setting off and on in turns;
+``--multi-seq-witness`` phase 14's lanes under the variants of
 ``multi_seq_witness`` (float32, other samplers, each lane alone, other
 scenes), a per-frame trace a lane.
 ``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
@@ -537,6 +597,44 @@ TRAIN_DEADLINE_S = 150
 MULTI_SEQ_REF: dict = {}
 LONG_MAP_REF: dict = {}
 GLOBAL_BA_REF: dict = {}
+# phase 9's runs and phase 10's kernel runs' ATE by protocol and seed, for
+# phase 18's comparison
+LONG_ROWS: list = []
+METRIC_ATES: dict = {}
+# phase 18: the short matrix as two calls of cli.bench_accuracy (cells,
+# matchers), seeds 11-13, 24 frames
+MATRIX_CALLS = (("mono/plane,mono/3d,mono/decay", "nn,sg"),
+                ("stereo/3d,stereo/decay,rgbd/3d,rgbd/decay", "nn,hybrid"))
+# each cell's production matcher and bound: the gate of
+# tests/test_accuracy_gates.py::test_production_cell_zero_failures_and_bounded
+# (its PRODUCTION, lines 36-44): no failed seed, mean under the bound
+MATRIX_PRODUCTION = {
+    "mono/plane": ("sg", 0.12), "mono/3d": ("sg", 0.15), "mono/decay": ("sg", 0.45),
+    "stereo/3d": ("hybrid", 0.60), "stereo/decay": ("hybrid", 0.65),
+    "rgbd/3d": ("hybrid", 0.15), "rgbd/decay": ("hybrid", 0.25),
+}
+# test_production_matcher_is_the_measured_winner's rule (production mean <=
+# 1.10 x the nn mean), printed here as a reading
+MATRIX_WINNER_RATIO = 1.10
+# an nn column loads no SuperGlue weights: it launches the stages and pose GN,
+# and never attention or Sinkhorn
+NN_KERNELS = ("stage1_conv", "stage_conv", "pose_gn")
+NN_ABSENT = ("attention", "sinkhorn")
+# tests/test_shipped_superglue_stereo.py's protocol for the shipped stereo
+# checkpoint: the plane scene with a radtan-distorted right lens, baseline
+# 0.1 m, seed 0, 24 frames at 240x320; initialised, >= 3 keyframes,
+# keyframe ATE (scale-corrected) finite and under 0.6
+V4STEREO_WEIGHTS = os.path.join(REPO, "weights", "superglue_v4stereo.npz")
+V4STEREO = dict(frames=24, baseline=0.1, d_right=(-0.28, 0.07, 0.0, 0.0), seed=0, max_ate=0.6)
+# phase 18's process: its budget (printed beside its seconds) and the
+# deadline after which the parent kills it
+MATRIX_BUDGET_S = 150
+MATRIX_DEADLINE_S = 450
+# its three parts, each in a process of its own in the whole run: the mono
+# cells, the stereo and RGB-D cells with the stereo checkpoint, and
+# mono/long; each writes its own file, MATRIX_DIR/<part>.json
+MATRIX_PARTS = ("mono", "metric", "long")
+MATRIX_DIR = os.path.join(REPO, "build", "matrix")
 
 
 
@@ -1906,6 +2004,7 @@ def long_phase(smi):
         emit({"phase": "long", **row})
     launches = dict(cuda_ext.LAUNCHES)
     torch.use_deterministic_algorithms(False)
+    LONG_ROWS[:] = rows
     failed = [r["seed"] for r in rows if r["online_ate"] is None]
     online = statistics.mean(r["online_ate"] for r in rows if r["online_ate"] is not None) if len(failed) < len(rows) else None
     pgo = statistics.mean(r["pgo_ate"] for r in rows)
@@ -1962,25 +2061,27 @@ def metric_scene(protocol, seed):
     return frames, out[1]
 
 
+def metric_config(protocol):
+    """A metric protocol's configuration: ``production_config`` with
+    matcher ``hybrid`` (the init-only NN floor of 40, relocalization on;
+    ``*/long``: its long-run configuration)."""
+    return production_config(long_run=protocol.split("/")[1] == "long", matcher="hybrid")
+
+
 def metric_engine(protocol, kernels=True, device="cuda", float32_point_side=False):
-    """``UR_MVO`` for a metric protocol: the production configuration with
-    matcher ``hybrid`` (``production_config``: the init-only NN floor of 40,
-    relocalization on; rgbd/long: its long-run configuration), and for stereo
-    a camera whose bf is fx times the baseline. ``float32_point_side``
+    """``UR_MVO`` for a metric protocol with ``metric_config``, and for
+    stereo a camera whose bf is fx times the baseline. ``float32_point_side``
     swaps in a backend whose BAs sum the point side of exact float32
     summands, as the monocular and stereo setups' do, where the RGB-D
     setup's round them to bf16 (a measurement, ``--metric-seeds``)."""
     from ur_mvo_tpu_torch.camera import make_pinhole
-    from ur_mvo_tpu_torch.config import Configs, SensorSetup
+    from ur_mvo_tpu_torch.config import SensorSetup
     from ur_mvo_tpu_torch.engine import UR_MVO
-    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
     from ur_mvo_tpu_torch.runtime.backend import Backend
 
     setup, cell = protocol.split("/")
-    long_run = cell == "long"
-    w, h, fx = (LONG_W, LONG_H, LONG_FX) if long_run else (W, H, FX)
-    cfg = production_config(Configs, checkpoint_operating_point, long_run)
-    cfg.superglue.matcher = "hybrid"
+    w, h, fx = (LONG_W, LONG_H, LONG_FX) if cell == "long" else (W, H, FX)
+    cfg = metric_config(protocol)
     cam = make_pinhole(w, h, fx, fx, w / 2, h / 2, bf=fx * BASELINE_M if setup == "stereo" else 0.0)
     vo = UR_MVO(cfg, SensorSetup(setup), camera=cam, device=device, kernels=kernels)
     if float32_point_side:
@@ -2164,14 +2265,16 @@ def metric_phase(smi):
     """``stereo/3d`` and ``rgbd/3d`` on the kernels and on their plain
     versions, then ``rgbd/long`` on the kernels, under PyTorch's
     deterministic algorithms. Pose GN must be fed stereo rows on
-    ``stereo/3d``. Returns each protocol's launch counts on the kernels."""
+    ``stereo/3d``. Returns each protocol's launch counts on the kernels and
+    the 24-frame protocols' ATE by seed on the kernels."""
     import torch
 
     torch.use_deterministic_algorithms(True, warn_only=True)
-    launches = {}
+    launches, ates = {}, {}
     for protocol in METRIC_MAX_ATE:
         scenes = {seed: metric_scene(protocol, seed) for seed in ENGINE_SEEDS}
         rows, launches[protocol] = metric_runs(protocol, True, scenes, smi)
+        ates[protocol] = {r["seed"]: r["ate"] for r in rows}
         plain_rows, plain_launches = metric_runs(protocol, False, scenes, smi)
         emit({"phase": "metric_summary", "protocol": protocol, "max_ate": METRIC_MAX_ATE[protocol],
               "mean_ate": {"kernels": statistics.mean(r["ate"] or float("nan") for r in rows),
@@ -2183,7 +2286,7 @@ def metric_phase(smi):
         if protocol.startswith("stereo") and not min(r["stereo_rows_a_problem"] for r in rows) > 0:
             raise AssertionError(f"{protocol}: a run fed pose GN no stereo row")
     launches["rgbd/long"] = rgbd_long(smi)
-    return launches
+    return launches, ates
 
 
 # phase 10 runs in a process of its own beside phases 9 and 13 (the three
@@ -2194,8 +2297,8 @@ METRIC_DEADLINE_S = 700
 
 def metric_side(workdir):
     """``--metric-side DIR``: phase 10 in a process of its own, its result
-    (launches, or the failure) pickled to ``DIR/metric.pkl``. The parent
-    built the extension; this process loads it."""
+    (launches and ATEs, or the failure) pickled to ``DIR/side.pkl``. The
+    parent built the extension; this process loads it."""
     import pickle
 
     from ur_mvo_tpu_torch.ops import cuda_ext
@@ -2203,35 +2306,37 @@ def metric_side(workdir):
     cuda_ext.extension()
     t0 = time.perf_counter()
     try:
-        out = {"launches": metric_phase(nvidia_smi_line())}
+        launches, ates = metric_phase(nvidia_smi_line())
+        out = {"launches": launches, "ates": ates}
     except AssertionError as e:
         out = {"failed": str(e)}
     out["seconds"] = time.perf_counter() - t0
-    with open(os.path.join(workdir, "metric.pkl"), "wb") as f:
+    with open(os.path.join(workdir, "side.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def start_metric_side():
-    """Start :func:`metric_side` (this script with ``--metric-side``); its
-    output goes to ``build/metric/side.log`` until :func:`join_metric_side`."""
+def start_side(flag, name, deadline_s, *extra):
+    """Start this script with ``flag build/{name} [extra]`` in a process of
+    its own (phase 10's ``--metric-side``, phase 18's ``--matrix-side``);
+    its output goes to ``build/{name}/side.log`` until :func:`join_side`."""
     import shutil
 
-    workdir = os.path.join(REPO, "build", "metric")
+    workdir = os.path.join(REPO, "build", name)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     log = open(os.path.join(workdir, "side.log"), "w")
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--metric-side", workdir], cwd=REPO,
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, workdir, *extra], cwd=REPO,
                             stdout=log, stderr=subprocess.STDOUT)
-    return proc, log, workdir, time.monotonic() + METRIC_DEADLINE_S
+    return proc, log, workdir, time.monotonic() + deadline_s, name, deadline_s
 
 
-def join_metric_side(side):
-    """Wait for phase 10's process (killed past its deadline), print its
-    lines, and return its launches; a failure, a crash or the deadline
-    fails the phase."""
+def join_side(side):
+    """Wait for a process of :func:`start_side` (killed past its deadline),
+    print its JSON lines, and return what it pickled; a crash or the
+    deadline fails the phase."""
     import pickle
 
-    proc, log, workdir, deadline = side
+    proc, log, workdir, deadline, name, deadline_s = side
     try:
         proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
@@ -2247,15 +2352,52 @@ def join_metric_side(side):
         if line.startswith("{"):
             print(line, flush=True)
     if proc.returncode != 0:
-        print(f"--- phase 10's process (exit {proc.returncode}), the end of its output:\n{text[-3000:]}",
+        print(f"--- the {name} phase's process (exit {proc.returncode}), the end of its output:\n{text[-3000:]}",
               file=sys.stderr, flush=True)
-        raise AssertionError(f"metric: its process exited {proc.returncode} (deadline {METRIC_DEADLINE_S} s)")
-    with open(os.path.join(workdir, "metric.pkl"), "rb") as f:
-        out = pickle.load(f)
+        raise AssertionError(f"{name}: its process exited {proc.returncode} (deadline {deadline_s} s)")
+    with open(os.path.join(workdir, "side.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def join_metric_side(side):
+    """Phase 10's process joined: its launches (its ATEs kept for phase
+    18); its failure fails the phase."""
+    out = join_side(side)
     emit({"phase": "metric", "check": "seconds", "in_its_process": out["seconds"]})
     if "failed" in out:
         raise AssertionError(out["failed"])
+    METRIC_ATES.update(out["ates"])
     return out["launches"]
+
+
+def start_matrix_sides():
+    """Phase 18's parts (``MATRIX_PARTS``), each in a process of its own,
+    each writing its own file in ``MATRIX_DIR``."""
+    import shutil
+
+    shutil.rmtree(MATRIX_DIR, ignore_errors=True)
+    os.makedirs(MATRIX_DIR)
+    return [start_side("--matrix-side", f"matrix/{part}", MATRIX_DEADLINE_S, part) for part in MATRIX_PARTS]
+
+
+def join_matrix_sides(sides, smi):
+    """Phase 18's processes joined (every one, also after a failure) and
+    checked against phases 8-10 (:func:`matrix_check`)."""
+    outs, bad = [], []
+    for side in sides:
+        try:
+            out = join_side(side)
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        if "error" in out:
+            print(out["error"], file=sys.stderr, flush=True)
+            bad.append(f"matrix ({out['part']}): its process raised: " + out["error"].strip().splitlines()[-1])
+            continue
+        outs.append(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return matrix_check(outs, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -2642,26 +2784,19 @@ def ba_phase():
 # Phase 8: the engine
 # ---------------------------------------------------------------------------
 
-def production_config(Configs, checkpoint_operating_point, long_run=False):
-    """The production mono configuration of ``scripts/bench_accuracy.py``
-    (``_production_cfg`` with matcher ``sg``): the checkpoint's operating
-    point, the init-only NN floor of 40, relocalization on. ``long_run``:
-    its long-sequence configuration at 480x640, with culling, loop closure
-    and the tracking-time NN floor of 40 on too."""
-    cfg = front_end_config(Configs, *((LONG_W, LONG_H) if long_run else (W, H)))
-    op = checkpoint_operating_point(SG_WEIGHTS) or {}
-    cfg.superpoint.capacity = op.get("capacity", 1024)
-    cfg.superpoint.max_keypoints = op.get("max_keypoints", 1000)
-    cfg.superpoint.keypoint_threshold = op.get("keypoint_threshold", 1e-4)
-    cfg.initializer.min_matches = op.get("min_matches", 60)
-    cfg.initializer.min_features_first = op.get("min_features_first", 100)
-    cfg.superglue.nn_fallback_min_matches_init = 40
-    cfg.backend.relocalization = True
-    if long_run:
-        cfg.backend.enable_culling = True
-        cfg.backend.loop_closure = True
-        cfg.superglue.nn_fallback_min_matches = 40
-    return cfg
+def production_config(long_run=False, matcher="sg"):
+    """The production configuration of ``cli.bench_accuracy`` (the port of
+    ``scripts/bench_accuracy.py``'s ``_production_cfg``; matcher ``sg``
+    unless another is named): the checkpoint's operating point, the
+    init-only NN floor of 40, relocalization on. ``long_run``: its
+    long-sequence configuration at 480x640, with culling, loop closure and
+    the tracking-time NN floor of 40 on too.
+    ``tests/test_torch_bench_accuracy.py`` holds it field for field to the
+    JAX script's."""
+    from ur_mvo_tpu_torch.cli.bench_accuracy import production_cfg
+
+    w, h = (LONG_W, LONG_H) if long_run else (W, H)
+    return production_cfg(matcher, W=w, H=h, long_run=long_run)
 
 
 def run_engine(vo, frames):
@@ -2721,12 +2856,14 @@ def keyframe_ate(vo, T_wc):
     return float(ate_rmse(kpos, T_wc[idx][:, :3, 3], align=True, correct_scale=needs_scale(vo))), kts, kpos
 
 
-def engine_scene(seed):
-    """One 24-frame ``mono/3d`` scene of the accuracy protocol."""
+def engine_scene(seed, scene="3d"):
+    """One 24-frame scene of the accuracy protocol's mono cells (``3d``, or
+    ``plane`` / ``decay`` of ``cli.bench_accuracy.SCENES``)."""
+    from ur_mvo_tpu_torch.cli.bench_accuracy import SCENES
     from ur_mvo_tpu_torch.components import Frame, Image
     from ur_mvo_tpu_torch.utils.synthscene import render_sequence
 
-    images, T_wc, _ = render_sequence(ENGINE_FRAMES, H, W, FX, seed=seed, n_planes=3, z_background=6.0)
+    images, T_wc, _ = render_sequence(ENGINE_FRAMES, H, W, FX, seed=seed, **SCENES[scene])
     return [Frame(image=Image(images[i], i / FPS)) for i in range(ENGINE_FRAMES)], T_wc
 
 
@@ -2757,25 +2894,235 @@ def score_run(vo, seed, T_wc, stamps, poses, init_at):
 
 def production_engine(kernels=True, long_run=False):
     from ur_mvo_tpu_torch.camera import make_pinhole
-    from ur_mvo_tpu_torch.config import Configs
     from ur_mvo_tpu_torch.engine import UR_MVO
-    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
 
     w, h, fx = (LONG_W, LONG_H, LONG_FX) if long_run else (W, H, FX)
-    return UR_MVO(production_config(Configs, checkpoint_operating_point, long_run),
+    return UR_MVO(production_config(long_run),
                   camera=make_pinhole(w, h, fx, fx, w / 2, h / 2), device="cuda", kernels=kernels)
 
 
-def engine_sweep(seeds, repeats=2):
-    """How the engine fares on scenes of the ``mono/3d`` family, and how
-    far one run differs from the next: per
-    seed, ``repeats`` runs on the kernels and one on the plain versions."""
+# the module attribute through which the main path calls each kernel's
+# wrapper: engine_sweep's --swap / --only columns point it at the plain
+# version, its --audit wraps it
+PATH_KERNELS = {
+    "stage_conv": ("ur_mvo_tpu_torch.models.superpoint", "stage_conv"),
+    "attention": ("ur_mvo_tpu_torch.models.superglue", "attention"),
+    "sinkhorn": ("ur_mvo_tpu_torch.models.superglue", "log_optimal_transport_kernel"),
+    "pose_gn": ("ur_mvo_tpu_torch.ops.cuda_pose", "pose_gn"),
+}
+
+
+def plain_of(name, fn):
+    """The plain version of a ``PATH_KERNELS`` wrapper, same arguments."""
+    if name == "pose_gn":
+        from ur_mvo_tpu_torch.ops.pose_opt import optimize_pose_plain
+
+        return optimize_pose_plain
+    return lambda *a, **k: fn(*a, **{**k, "plain": True})
+
+
+def route_kernels(routes):
+    """Points each named ``PATH_KERNELS`` entry at ``routes[name](name,
+    wrapper)``; returns the undo."""
+    import importlib
+
+    saved = []
+    for name, route in routes.items():
+        mod, attr = PATH_KERNELS[name]
+        m = importlib.import_module(mod)
+        saved.append((m, attr, getattr(m, attr)))
+        setattr(m, attr, route(name, getattr(m, attr)))
+
+    def undo():
+        for m, attr, fn in reversed(saved):
+            setattr(m, attr, fn)
+
+    return undo
+
+
+def audited(records, frame, threshold):
+    """A route that returns the kernel's own result and also runs the plain
+    version on the same inputs, appending to ``records`` the frame
+    (``frame[0]``; nothing while ``frame[1]``), the kernel and how far apart
+    the two are: for the stages and attention the largest error over the
+    largest |plain|; for Sinkhorn that, the share of valid rows whose best
+    column differs and the matches each decodes at the matcher's
+    ``threshold``; for pose GN per problem of the call the inlier counts of
+    both and the largest difference of t and of R."""
+    from ur_mvo_tpu_torch.ops.matching import decode_assignment
+
+    def route(name, fn):
+        plain = plain_of(name, fn)
+
+        def call(*a, **k):
+            out = fn(*a, **k)
+            if frame[1]:
+                return out
+            ref = plain(*a, **k)
+            rec = {"frame": frame[0], "kernel": name}
+            if name == "pose_gn":
+                n_k, n_p = out[2].sum(-1).tolist(), ref[2].sum(-1).tolist()
+                dt = (out[1] - ref[1]).abs().amax(-1).tolist()
+                dR = (out[0] - ref[0]).abs().flatten(1).amax(-1).tolist()
+                rec["problems"] = [list(p) for p in zip(n_k, n_p, dt, dR)]
+            else:
+                o, r = out.float(), ref.float()
+                if name == "sinkhorn":
+                    keep = r > -1e8
+                    rec["err"] = float(((o - r).abs() * keep).amax() / (r.abs() * keep).amax())
+                    rows = a[1]  # valid0: (M,) or (S, M)
+                    best = (o[..., :-1, :].argmax(-1) != r[..., :-1, :].argmax(-1)) & rows
+                    rec["rows_differ"] = float(best.sum() / rows.sum().clamp(min=1))
+                    lanes = list(zip(o, r, a[1], a[2])) if o.dim() == 3 else [(o, r, a[1], a[2])]
+                    rec["matches"] = [sum(int(decode_assignment(lane[i], v0, v1, threshold).num_valid())
+                                          for lane in lanes for v0, v1 in [lane[2:]]) for i in (0, 1)]
+                else:
+                    rec["err"] = float((o - r).abs().amax() / r.abs().amax().clamp(min=1e-30))
+            records.append(rec)
+            return out
+
+        return call
+
+    return route
+
+
+def audit_summary(records, lost_at):
+    """Per kernel over one run's audited calls: calls, the largest error;
+    for Sinkhorn the largest share of rows whose best column moved; for
+    Sinkhorn and the whole matcher the matches decoded from the kernels'
+    scores and from the plain versions' on the same inputs (summed, and
+    the calls where they differ by 10 or more); for pose GN the problems
+    whose inlier count differs from the plain version's, the largest such
+    difference, and the frames (lost ones marked) where it is 5 or more."""
+    out = {}
+    for name in (*PATH_KERNELS, "superglue"):
+        rs = [r for r in records if r["kernel"] == name]
+        if not rs:
+            continue
+        if name == "pose_gn":
+            probs = [(r["frame"], *p) for r in rs for p in r["problems"]]
+            off = [p for p in probs if p[1] != p[2]]
+            out[name] = {"calls": len(rs), "problems": len(probs), "inlier_count_differs": len(off),
+                         "max_inlier_count_diff": max((abs(p[1] - p[2]) for p in off), default=0),
+                         "max_dt": max(p[3] for p in probs), "max_dR": max(p[4] for p in probs),
+                         "frames_diff_ge5": sorted({(p[0], p[0] in lost_at) for p in off if abs(p[1] - p[2]) >= 5})}
+            continue
+        out[name] = {"calls": len(rs)}
+        if name != "superglue":
+            out[name]["max_err"] = max(r["err"] for r in rs)
+        if name == "sinkhorn":
+            out[name]["max_rows_differ"] = max(r["rows_differ"] for r in rs)
+        if name in ("sinkhorn", "superglue"):
+            out[name].update(matches_kernel=sum(r["matches"][0] for r in rs),
+                             matches_plain=sum(r["matches"][1] for r in rs),
+                             calls_kernel_fewer_by_10=sum(r["matches"][0] <= r["matches"][1] - 10 for r in rs),
+                             calls_kernel_more_by_10=sum(r["matches"][0] >= r["matches"][1] + 10 for r in rs))
+    return out
+
+
+def audit_matcher(vo, records, frame):
+    """Wraps the engine's SuperGlue ``match_scores``: each call also scores
+    the same banks with every kernel on its plain version (the audit's own
+    records muted meanwhile) and appends the matches each decodes at the
+    matcher's threshold. Returns the undo."""
+    from ur_mvo_tpu_torch.ops.matching import decode_assignment
+
+    sg, thr = vo.extractor.superglue, vo.extractor.match_threshold
+    scores = sg.match_scores
+
+    def audited_scores(b0, b1, *a, **k):
+        Z = scores(b0, b1, *a, **k)
+        frame[1], sg.kernels = True, False
+        try:
+            Zp = scores(b0, b1, *a, **k)
+        finally:
+            frame[1], sg.kernels = False, True
+        n = [int(decode_assignment(z, b0.valid, b1.valid, thr).num_valid()) for z in (Z, Zp)]
+        records.append({"frame": frame[0], "kernel": "superglue", "matches": n})
+        return Z
+
+    sg.match_scores = audited_scores
+
+    def undo():
+        del sg.match_scores
+
+    return undo
+
+
+def reference_candidates(tracker):
+    """The triangulated points of the tracker's reference keyframe (the
+    fused step's candidates), None before it initialised; fewer than
+    ``MULTI_SEQ_COLLAPSED`` is a collapsed map (ROADMAP C11)."""
+    if not tracker.initialized or tracker._ref_slot is None:
+        return None
+    return int((tracker.fused_snapshot()[:, 3] > 1.5).sum())
+
+
+def traced_run(vo, seed, frames, routes, audit=False):
+    """``engine_run`` with the named kernels routed (``route_kernels``),
+    recording per frame the fused step's matches and inliers and the
+    triangulated candidates of the reference keyframe it ran against
+    (``track``), and the frames lost (``lost_at``); ``audit`` also holds every kernel
+    call, and every SuperGlue scoring as a whole, against the plain
+    versions on the same inputs (``audited``, ``audit_matcher``,
+    ``audit_summary``)."""
+    tr, frame, records, track, lost_at = vo.tracker, [0, False], [], {}, []
+    process, fused = vo.process, tr._track_frame_fused
+
+    def traced_process(f, **k):
+        lost = tr.frames_lost
+        out = process(f, **k)
+        if tr.frames_lost > lost:
+            lost_at.append(frame[0])
+        frame[0] += 1
+        return out
+
+    def traced_fused(*a, **k):
+        cand = reference_candidates(tr)
+        res = fused(*a, **k)
+        track.setdefault(frame[0], []).append([int(res[0]), int(res[1]), cand])
+        return res
+
+    vo.process, tr._track_frame_fused = traced_process, traced_fused
+    routes, undo_matcher = dict(routes), None
+    if audit:
+        route = audited(records, frame, vo.extractor.match_threshold)
+        routes.update({n: route for n in PATH_KERNELS if n not in routes})
+        undo_matcher = audit_matcher(vo, records, frame)
+    undo = route_kernels(routes)
+    try:
+        row = engine_run(vo, seed, frames)[0]
+    finally:
+        undo()
+        if undo_matcher:
+            undo_matcher()
+        del vo.process, tr._track_frame_fused
+    row.update(lost_at=lost_at, track={str(k): v for k, v in track.items()})
+    if audit:
+        row["audit"] = audit_summary(records, set(lost_at))
+    return row
+
+
+def engine_sweep(seeds, repeats=2, scene="3d", swap=(), only=(), audit=False):
+    """How the engine fares on scenes of a mono cell's family (``3d``,
+    ``plane``, ``decay``), and how far one run differs from the next: per
+    seed, ``repeats`` runs on the kernels and one on the plain versions;
+    for each name in ``swap`` a run on the kernels with that one kernel on
+    its plain version (``plain_<name>``), for each in ``only`` a run with
+    every other kernel of ``PATH_KERNELS`` on its plain version
+    (``only_<name>``). Each run records its frames lost and the fused
+    step's matches and inliers per frame (``traced_run``); ``audit`` holds
+    every kernel call of the first kernel run against its plain version."""
     engines = {k: production_engine(k) for k in (True, False)}
+    to_plain = {n: plain_of for n in PATH_KERNELS}
+    columns = [(f"kernels_{r}", True, {}) for r in range(repeats)] + [("plain", False, {})]
+    columns += [(f"plain_{n}", True, {n: plain_of}) for n in swap]
+    columns += [(f"only_{n}", True, {m: r for m, r in to_plain.items() if m != n}) for n in only]
     for seed in seeds:
-        scene = engine_scene(seed)
-        row = {"phase": "engine_sweep", "seed": seed}
-        for name, vo in [(f"kernels_{r}", engines[True]) for r in range(repeats)] + [("plain", engines[False])]:
-            row[name] = engine_run(vo, seed, scene)[0]
+        frames = engine_scene(seed, scene)
+        row = {"phase": "engine_sweep", "scene": scene, "seed": seed}
+        for i, (name, kernels, routes) in enumerate(columns):
+            row[name] = traced_run(engines[kernels], seed, frames, routes, audit=audit and i == 0)
         emit(row)
 
 
@@ -2888,6 +3235,68 @@ def engine_phase(smi):
     return launches
 
 
+def deterministic_witness(smi):
+    """``--deterministic-witness``: what PyTorch's deterministic algorithms
+    touch and cost on the ``mono/3d`` protocol (ROADMAP C16), the setting
+    the CLIs take on CUDA. (a) seed 11 under
+    ``torch.use_deterministic_algorithms(True)`` without ``warn_only``: the
+    first op that raises; then under ``warn_only`` with every warning
+    recorded: each op that would raise and how often. (b) host ms a frame
+    over seeds 11-13 with the setting off and on in turns (off, on, off,
+    on; one engine), each run's ATE beside it."""
+    import warnings
+
+    import torch
+
+    scenes = {seed: engine_scene(seed) for seed in ENGINE_SEEDS}
+    seed = ENGINE_SEEDS[0]
+    strict = production_engine()
+    torch.use_deterministic_algorithms(True)
+    first = None
+    try:
+        engine_run(strict, seed, scenes[seed])
+    except RuntimeError as e:
+        first = str(e)[:600]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    vo = production_engine()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            row = engine_run(vo, seed, scenes[seed])[0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = collections.Counter(str(w.message).strip().splitlines()[0][:300] for w in caught
+                              if "determinis" in str(w.message))
+    emit({"phase": "deterministic_witness", "part": "a", "seed": seed, "strict_first_raise": first,
+          "warn_only_ops": dict(ops.most_common()), "warn_only_run": row, "card": smi})
+
+    runs = []
+    for repeat in range(2):
+        for det in (False, True):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            for s in ENGINE_SEEDS:
+                r, per_frame, _ = engine_run(vo, s, scenes[s])
+                after = per_frame[(r["initialised_at_frame"] or 0) + 1:]
+                runs.append({"deterministic": det, "repeat": repeat, "seed": s, "ate": r["ate"],
+                             "keyframe_ate": r["keyframe_ate"], "host_ms_median": statistics.median(per_frame),
+                             "host_ms_after_init": after})
+            torch.use_deterministic_algorithms(False)
+    vo.shutdown()
+    summary = {}
+    for det in (False, True):
+        mine = [r for r in runs if r["deterministic"] == det]
+        pooled = [ms for r in mine for ms in r.pop("host_ms_after_init")]
+        summary["on" if det else "off"] = {"host_ms_a_frame_after_init_median": statistics.median(pooled),
+                                           "host_ms_a_frame_after_init_mean": statistics.mean(pooled),
+                                           "frames": len(pooled)}
+    emit({"phase": "deterministic_witness", "part": "b", "runs": runs, "summary": summary,
+          "on_over_off": summary["on"]["host_ms_a_frame_after_init_median"]
+          / summary["off"]["host_ms_a_frame_after_init_median"], "card": smi})
+
+
 # ---------------------------------------------------------------------------
 # Phase 13: the extras (local-map tracking, resolution buckets, sub-pixel
 # peaks, patch descriptors, map snapshots)
@@ -2896,10 +3305,7 @@ def engine_phase(smi):
 def extras_config(edit=None):
     """``production_config`` (240x320, the checkpoint's operating point,
     relocalization on) with ``edit`` applied."""
-    from ur_mvo_tpu_torch.config import Configs
-    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
-
-    cfg = production_config(Configs, checkpoint_operating_point)
+    cfg = production_config()
     if edit is not None:
         edit(cfg)
     return cfg
@@ -3612,11 +4018,9 @@ def multi_seq_engine(S, kernels=True, compute_dtype=None, seed=None):
     ``compute_dtype`` and ``seed`` (``runtime.seed``: the lanes' and
     trackers' samplers) replace the configuration's."""
     from ur_mvo_tpu_torch.camera import make_pinhole
-    from ur_mvo_tpu_torch.config import Configs
-    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
     from ur_mvo_tpu_torch.parallel.multi_seq import MultiSequenceVO
 
-    cfg = production_config(Configs, checkpoint_operating_point)
+    cfg = production_config()
     if compute_dtype is not None:
         cfg.runtime.compute_dtype = compute_dtype
     if seed is not None:
@@ -3654,8 +4058,9 @@ def multi_seq_trace(msvo):
                 e["m"] = int(m.num_valid())
             if pt is not None:
                 e["row"] = [int(pt[0]), int(pt[1])]
-            if _t.initialized and _t._ref_slot is not None:
-                e["cand"] = int((_t.fused_snapshot()[:, 3] > 1.5).sum())
+            cand = reference_candidates(_t)
+            if cand is not None:
+                e["cand"] = cand
             lost, reloc = _t.frames_lost, _t.relocalizations
             _log.append(e)
             out = _f(bank, ts, **k)
@@ -4150,10 +4555,8 @@ def mesh_rank(rank, world, backend, workdir):
 
     # --- MultiSequenceVO(mesh): S lanes, S / world a rank ------------------
     from ur_mvo_tpu_torch.camera import make_pinhole
-    from ur_mvo_tpu_torch.config import Configs
-    from ur_mvo_tpu_torch.models.superglue import checkpoint_operating_point
 
-    cfg = production_config(Configs, checkpoint_operating_point)
+    cfg = production_config()
     cam = make_pinhole(W, H, FX, FX, W / 2, H / 2)
     msvo = MultiSequenceVO(cfg, cam, len(slots), mesh=mesh, device=dev)
     multi_seq_lanes_at(msvo, [slots[i] for i in msvo.lanes])
@@ -4207,6 +4610,11 @@ def mesh_rank(rank, world, backend, workdir):
     b = Backend(camera, bcfg, ocfg, store=store, keypoints_per_frame=store.cfg.keypoints_per_frame, device=dev)
     run("global_optimize", lambda: b.global_optimize(mesh=mesh))
     out["long"] = {"full_ba": b.last_full_ba, **{f: getattr(b.store, f).copy() for f in ("kf_R", "kf_t", "mp_pos")}}
+
+    # --- the mesh BA's all_reduce traffic a LM step (cli.bench_scaling) -----
+    from ur_mvo_tpu_torch.cli.bench_scaling import count_all_reduce
+
+    out["all_reduce"] = run("all_reduce_count", lambda: count_all_reduce(mesh, dev))
     out["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(workdir, f"w{world}_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -4379,6 +4787,20 @@ def mesh_phase(smi):
                   **row, "faults": faults, "card": smi})
             bad += [f"world {world} rank {rank}: {f}" for f in faults]
             launches[f"mesh/w{world}" + (f"/r{rank}" if world > 1 else "")] = row["path_launches"]
+        counts = [outs[world, r]["all_reduce"] for r in range(world) if (world, r) in outs]
+        if counts:
+            c, terms = counts[0], counts[0]["packed_terms"]
+            emit({"phase": "mesh", "check": "all_reduce", "world": world, "backend": backend,
+                  "problem": c["problem"], "lm_steps": c["lm_steps"],
+                  "ranks": [{k: x[k] for k in ("rank", "all_reduce_calls", "all_reduce_bytes")} for x in counts],
+                  "calls_a_step": c["calls_a_step"], "bytes_a_step": c["bytes_a_step"], "packed_terms": terms,
+                  "jax_source": c["jax_source"], "seconds_not_a_rate": [x["seconds_not_a_rate"] for x in counts],
+                  "card": smi})
+            for x in counts:
+                if (x["all_reduce_calls"], x["all_reduce_bytes"]) != (terms["calls"], terms["bytes"]):
+                    bad.append(f"world {world} rank {x['rank']}: all_sum counted {x['all_reduce_calls']} calls, "
+                               f"{x['all_reduce_bytes']} bytes; the packed terms give {terms['calls']}, "
+                               f"{terms['bytes']}")
         if world > 1 and all((world, r) in outs for r in range(world)):
             same = all(np.array_equal(outs[world, 0][k][f], outs[world, r][k][f]) for r in range(1, world)
                        for k, fs in (("ba", ("R", "t", "X")), ("long", ("kf_R", "kf_t", "mp_pos"))) for f in fs)
@@ -4603,9 +5025,11 @@ def sequence_witness(smi):
     the card. The frames ``cli_datasets`` writes for seed 11, as the native
     and the Python readers return them, against the scene ``engine_scene``
     renders; then ``cli_run_vo`` frame by frame and with ``--chunk 4``,
-    twice each, under deterministic algorithms and without (the digests of
-    ``poses.txt`` and ``keyframes.txt`` and the ATE line of each run); and
-    the engine's own per-frame run of the scene beside them."""
+    twice each, with the caller's deterministic algorithms on and off (the
+    digests of ``poses.txt`` and ``keyframes.txt`` and the ATE line of each
+    run: the CLI takes deterministic algorithms on CUDA itself, so the runs
+    of each kind should share their bytes either way); and the engine's own
+    per-frame run of the scene beside them."""
     import hashlib
 
     import numpy as np
@@ -5215,6 +5639,292 @@ def training_phase(smi):
                                                        "train/export") or k.startswith("train/dp")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the accuracy matrix through its command line
+# ---------------------------------------------------------------------------
+
+def matrix_jax_means():
+    """``ACCURACY.json``'s means (the JAX package's ``bench_accuracy.py``
+    on the CPU) by cell and matcher, printed beside the card's; {} where the
+    file is absent."""
+    path = os.path.join(REPO, "ACCURACY.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        cells = json.load(f)["cells"]
+    return {cell: {m: row.get("mean") for m, row in rows.items()} for cell, rows in cells.items()}
+
+
+def collapsed_losses(bench_accuracy, counts):
+    """Wraps ``cli.bench_accuracy.run_sequence`` so that each run appends
+    to ``counts`` how many frames it lost while its reference keyframe
+    held fewer than ``MULTI_SEQ_COLLAPSED`` triangulated points (a
+    collapsed map: ROADMAP C11, C17). Returns the undo."""
+    run_sequence = bench_accuracy.run_sequence
+
+    def counted(vo, *a, **k):
+        tr, n = vo.tracker, [0]
+        process = tr.process
+
+        def traced(*pa, **pk):
+            cand, lost = reference_candidates(tr), tr.frames_lost
+            out = process(*pa, **pk)
+            n[0] += tr.frames_lost > lost and cand is not None and cand < MULTI_SEQ_COLLAPSED
+            return out
+
+        tr.process = traced
+        try:
+            return run_sequence(vo, *a, **k)
+        finally:
+            del tr.process
+            counts.append(n[0])
+
+    bench_accuracy.run_sequence = counted
+    return lambda: setattr(bench_accuracy, "run_sequence", run_sequence)
+
+
+def matrix_short(out_json, cell_list, matchers, seeds, frames, device):
+    """(a): ``cli.bench_accuracy.main`` over some of the short matrix's
+    cells into ``out_json``, launch counts reset before it (the CLI
+    reports each cell's own). Returns the written document, each cell's
+    launches and seconds, and each run's health with its frames lost to a
+    collapsed map (``frames_lost_collapsed``, :func:`collapsed_losses`)."""
+    from ur_mvo_tpu_torch.cli import bench_accuracy
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    counts = []
+    undo = collapsed_losses(bench_accuracy, counts)
+    try:
+        cuda_ext.LAUNCHES.clear()
+        res = bench_accuracy.main(["--cells", cell_list, "--matchers", matchers, "--seeds", str(seeds),
+                                   "--frames", str(frames), "--out", out_json, "--device", device])
+    finally:
+        undo()
+    for run, n in zip(res["runs"], counts, strict=True):
+        run["frames_lost_collapsed"] = n
+    return res["doc"], {(c["cell"], c["matcher"]): c for c in res["cells"]}, res["runs"]
+
+
+def matrix_table(doc, cells, runs, smi):
+    """The production and ``nn`` rows of the cells run here, beside the JAX
+    package's means, and the faults of the gates: the production
+    matcher's of ``tests/test_accuracy_gates.py`` (no failed seed, mean
+    under the bound), its runs' health (initialised, >= 3 keyframes, <= 6
+    frames lost from a map it could track: the frames lost to a collapsed
+    map, ``frames_lost_collapsed``, counted apart as ``multi_seq_health``
+    counts them), and the kernels each column must and must not launch."""
+    jax_means = matrix_jax_means()
+    faults, ratios = [], {}
+    for cell in dict.fromkeys(c for c, _ in cells):
+        prod, bound = MATRIX_PRODUCTION[cell]
+        for m in (prod, "nn"):
+            row, info = doc["cells"][cell][m], cells[(cell, m)]
+            mine = [r for r in runs if r["cell"] == cell and r["matcher"] == m]
+            launches = info["launches"]
+            emit({"phase": "matrix", "cell": cell, "matcher": m, "production": m == prod,
+                  "max_frames_lost": None if m == "nn" else MAX_FRAMES_LOST, **row,
+                  "host_ms_a_frame": statistics.median(r["host_ms_a_frame"] for r in mine),
+                  "seconds": info["seconds"], "health": [{k: r[k] for k in (
+                      "seed", "initialised_at_frame", "keyframes", "frames_lost", "frames_lost_collapsed", "lost_at",
+                      "relocalizations", "poses_emitted")} for r in mine],
+                  "jax_cpu_mean": jax_means.get(cell, {}).get(m), "launches": launches, "card": smi})
+            if m == "nn":
+                missing = [k for k in NN_KERNELS if not launches.get(k)]
+                extra = [k for k in NN_ABSENT if launches.get(k)]
+                if missing or extra:
+                    faults.append(f"{cell} [nn]: kernels never launched {missing}, launched without SuperGlue {extra}")
+                continue
+            if row["failed"] or not row["mean"] < bound:
+                faults.append(f"{cell} [{m}]: mean {row['mean']} (< {bound}), failed seeds {row['failed']}")
+            for r in mine:
+                lost = r["frames_lost"] - r["frames_lost_collapsed"]
+                if r["initialised_at_frame"] is None or r["keyframes"] < MIN_KEYFRAMES or lost > MAX_FRAMES_LOST:
+                    faults.append(f"{cell} [{m}] seed {r['seed']}: initialised at {r['initialised_at_frame']}, "
+                                  f"{r['keyframes']} keyframes (>= {MIN_KEYFRAMES}), {lost} frames lost from a map "
+                                  f"it could track (<= {MAX_FRAMES_LOST}; {r['frames_lost_collapsed']} more lost to "
+                                  f"a collapsed map)")
+            missing = [k for k in ENGINE_KERNELS if not launches.get(k)]
+            if missing:
+                faults.append(f"{cell} [{m}]: kernels of the path never launched: {missing}")
+        nn_mean = doc["cells"][cell]["nn"]["mean"]
+        ratios[cell] = doc["cells"][cell][prod]["mean"] / nn_mean if nn_mean else None
+    emit({"phase": "matrix", "check": "winner", "production_mean_over_nn_mean": ratios,
+          "jax_rule": MATRIX_WINNER_RATIO, "note": "a reading, not a gate: the 3-seed nn column carries C1's spread"})
+    return faults
+
+
+def v4stereo_run(smi, device="cuda"):
+    """(d): ``tests/test_shipped_superglue_stereo.py``'s protocol with the
+    shipped stereo checkpoint: the plane scene with a radtan-distorted right
+    lens (``cli.make_synthetic_dataset.render_plane_sequence``), the right
+    camera's rectify map built from that lens as the test builds it, the
+    test's configuration with ``superglue_v4stereo.npz``, under
+    deterministic algorithms, launch counts reset just before. Returns the
+    run's launches and its faults: initialised, >= 3 keyframes, keyframe
+    ATE (scale-corrected) finite and under the bound; every kernel
+    launched."""
+    import numpy as np
+    import torch
+
+    from ur_mvo_tpu_torch.camera import make_pinhole
+    from ur_mvo_tpu_torch.cli.make_synthetic_dataset import render_plane_sequence
+    from ur_mvo_tpu_torch.components import Frame, Image
+    from ur_mvo_tpu_torch.config import Configs, SensorSetup
+    from ur_mvo_tpu_torch.engine import UR_MVO
+    from ur_mvo_tpu_torch.ops import cuda_ext
+    from ur_mvo_tpu_torch.utils.metrics import ate_rmse
+
+    p = V4STEREO
+    n = p["frames"]
+    images, T_wc, images_r = render_plane_sequence(n, H, W, FX, seed=p["seed"], baseline=p["baseline"],
+                                                   d_right=p["d_right"])
+    cam = make_pinhole(W, H, FX, FX, W / 2, H / 2, bf=FX * p["baseline"])
+    K_r = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    cam.undistort_map_right = cam._build_undistort_map(K_r, np.array(p["d_right"]), np.eye(3), 0)
+    cfg = Configs()
+    cfg.superpoint.weights_path = SP_WEIGHTS
+    cfg.superpoint.capacity = 1024
+    cfg.superpoint.max_keypoints = 1000
+    cfg.superpoint.keypoint_threshold = 1e-4
+    cfg.superglue.weights_path = V4STEREO_WEIGHTS
+    cfg.superglue.image_width, cfg.superglue.image_height = W, H
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        vo = UR_MVO(cfg, SensorSetup.STEREO, camera=cam, device=device)
+        cuda_ext.LAUNCHES.clear()
+        t0, host_ms = time.perf_counter(), []
+        for i in range(n):
+            f = Frame(image=Image(images[i], i / FPS))
+            f.right_image = Image(images_r[i], i / FPS)
+            t1 = time.perf_counter()
+            vo.process(f)
+            host_ms.append(1e3 * (time.perf_counter() - t1))
+        kts, kpos, _ = vo.keyframe_trajectory()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_ext.LAUNCHES)
+        ate = None
+        if len(kpos) >= 3:
+            idx = np.clip((np.asarray(kts) * FPS).round().astype(int), 0, n - 1)
+            ate = float(ate_rmse(np.asarray(kpos), T_wc[idx][:, :3, 3], align=True, correct_scale=True))
+        row = {"initialised": bool(vo.tracker.initialized), "keyframes": len(kpos), "keyframe_ate": ate,
+               "frames_lost": vo.tracker.frames_lost, "matcher": vo.config.superglue.matcher,
+               "host_ms_a_frame_median": statistics.median(host_ms), "seconds": seconds, "launches": launches}
+        vo.shutdown()
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=True)
+    emit({"phase": "matrix", "path": "v4stereo", "frames": n, "baseline_m": p["baseline"], "d_right": p["d_right"],
+          **row, "max_keyframe_ate": p["max_ate"], "card": smi})
+    faults = []
+    if not (row["initialised"] and row["keyframes"] >= MIN_KEYFRAMES and ate is not None and np.isfinite(ate)
+            and ate < p["max_ate"]):
+        faults.append(f"v4stereo: initialised {row['initialised']}, {row['keyframes']} keyframes (>= "
+                      f"{MIN_KEYFRAMES}), keyframe ATE {ate} (< {p['max_ate']})")
+    missing = [k for k in ENGINE_KERNELS if not launches.get(k)]
+    if device == "cuda" and missing:
+        faults.append(f"v4stereo: kernels of the path never launched: {missing}")
+    return launches, faults
+
+
+def matrix_part(part, smi, out_json=None, device="cuda", seeds=3, frames=ENGINE_FRAMES,
+                long_frames=LONG_FRAMES, calls=MATRIX_CALLS):
+    """One part of phase 18 (``MATRIX_PARTS``): ``"mono"`` and ``"metric"``
+    (a) the short matrix's call of ``calls`` for their setups with its
+    gates, ``"metric"`` also (d) the shipped stereo checkpoint; ``"long"``
+    (c) ``--long --cells mono/long --matchers sg --seeds 1``. Returns what
+    :func:`matrix_check` compares with phases 8-10: the 3d cells' runs, the
+    long row, the launches by path, the faults and the seconds."""
+    from ur_mvo_tpu_torch.cli import bench_accuracy
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    t0 = time.perf_counter()
+    out_json = out_json or os.path.join(MATRIX_DIR, f"{part}.json")
+    out = {"part": part, "runs_3d": {}, "long": None, "launches_by_path": {}, "faults": []}
+    if part == "long":
+        cuda_ext.LAUNCHES.clear()
+        res = bench_accuracy.main(["--long", "--cells", "mono/long", "--matchers", "sg", "--seeds", "1",
+                                   "--frames", str(long_frames), "--out", out_json, "--device", device])
+        (cell,) = res["cells"]
+        out["long"] = res["doc"]["cells"]["mono/long"]["sg"]
+        out["launches_by_path"]["matrix/mono/long/sg"] = cell["launches"]
+        emit({"phase": "matrix", "path": "mono/long", "matcher": "sg", **out["long"], "health": res["runs"],
+              "seconds": cell["seconds"], "launches": cell["launches"], "card": smi})
+        missing = [k for k in ENGINE_KERNELS if not cell["launches"].get(k)]
+        if device == "cuda" and missing:
+            out["faults"].append(f"mono/long [sg]: kernels of the path never launched: {missing}")
+    else:
+        cell_list, matchers = calls[("mono", "metric").index(part)]
+        doc, cells, runs = matrix_short(out_json, cell_list, matchers, seeds, frames, device)
+        out["faults"] += matrix_table(doc, cells, runs, smi)
+        out["launches_by_path"].update({f"matrix/{cell}/{m}": c["launches"] for (cell, m), c in cells.items()})
+        out["runs_3d"] = {cell: doc["cells"][cell][MATRIX_PRODUCTION[cell][0]]["runs"] for cell, _ in cells
+                          if cell.endswith("/3d")}
+        if part == "metric":
+            out["launches_by_path"]["matrix/v4stereo"], faults = v4stereo_run(smi, device)
+            out["faults"] += faults
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def matrix_check(outs, smi):
+    """(b) and (c) against the earlier phases where they ran: each seed's
+    ATE of the 3d cells to the digit (the CLI's four) of phase 8's kernel
+    run (``mono/3d`` sg) and phase 10's (``stereo/3d``, ``rgbd/3d``
+    hybrid), and ``mono/long`` seed 11's online ATE and its ATE after
+    ``global_optimize`` of phase 9's; then every fault of the parts.
+    Returns the launches by path."""
+    refs = {"mono/3d": {r["seed"]: r["ate"] for r in SINGLE_STREAM_ROWS}}
+    refs.update(METRIC_ATES)
+    faults, by_path = [], {}
+    for out in outs:
+        faults += out["faults"]
+        by_path.update(out["launches_by_path"])
+        for cell, got in out["runs_3d"].items():
+            ref = refs.get(cell)
+            want = [round(ref[s], 4) if ref.get(s) is not None else None for s in ENGINE_SEEDS] if ref else None
+            emit({"phase": "matrix", "check": "3d cells against phases 8 and 10", "cell": cell, "cli": got,
+                  "earlier_phase": want if want else "did not run: the CLI's readings alone"})
+            if want and got != want:
+                faults.append(f"{cell}: the CLI's runs {got} are not the earlier phase's {want}")
+        if out["long"] is not None:
+            ref = next((r for r in LONG_ROWS if r["seed"] == ENGINE_SEEDS[0]), None)
+            want = None if ref is None else {
+                "online": round(ref["online_ate"], 4) if ref["online_ate"] is not None else None,
+                "pgo": round(ref["pgo_ate"], 4)}
+            got = {"online": out["long"]["runs"][0], "pgo": (out["long"].get("pgo_runs") or [None])[0]}
+            emit({"phase": "matrix", "check": "mono/long seed 11 against phase 9", "cli": got,
+                  "phase_9": want if want else "did not run: the CLI's readings alone"})
+            if want and got != want:
+                faults.append(f"mono/long seed 11: the CLI's {got} is not phase 9's {want}")
+    emit({"phase": "matrix", "check": "seconds", "parts": {o["part"]: o["seconds"] for o in outs},
+          "processes": {o["part"]: o.get("process_s") for o in outs}, "budget": MATRIX_BUDGET_S, "card": smi})
+    if faults:
+        raise AssertionError("matrix: " + "; ".join(faults))
+    return by_path
+
+
+def matrix_side(workdir, part):
+    """``--matrix-side DIR PART``: one part of phase 18 in a process of its
+    own, its result (or the error) pickled to ``DIR/side.pkl``. The parent
+    built the extension; this process loads it."""
+    import pickle
+    import traceback
+
+    from ur_mvo_tpu_torch.ops import cuda_ext
+
+    t0 = time.perf_counter()
+    cuda_ext.extension()
+    try:
+        out = matrix_part(part, nvidia_smi_line())
+    except Exception:  # the parent reports it as the phase's failure
+        out = {"part": part, "error": traceback.format_exc()}
+    out["process_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, "side.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 def stereo_columns(vo):
     """Per keyframe (by frame id), the rows of its keypoints that hold a
     gated right x (``u_right > 0``): the stereo seeds."""
@@ -5241,6 +5951,10 @@ def main() -> int:
     if "--metric-side" in sys.argv:
         metric_side(sys.argv[sys.argv.index("--metric-side") + 1])
         return 0
+    if "--matrix-side" in sys.argv:
+        i = sys.argv.index("--matrix-side")
+        matrix_side(sys.argv[i + 1], sys.argv[i + 2])
+        return 0
     from ur_mvo_tpu_torch.ops import cuda_ext
     from ur_mvo_tpu_torch.utils.synthscene import render_sequence
 
@@ -5259,8 +5973,13 @@ def main() -> int:
     if "--engine-seeds" in sys.argv:
         if "--deterministic" in sys.argv:
             torch.use_deterministic_algorithms(True, warn_only=True)
-        engine_sweep([int(x) for x in sys.argv[sys.argv.index("--engine-seeds") + 1].split(",")],
-                     repeats=int(sys.argv[sys.argv.index("--repeats") + 1]) if "--repeats" in sys.argv else 2)
+        def names(flag):
+            return sys.argv[sys.argv.index(flag) + 1].split(",") if flag in sys.argv else []
+
+        engine_sweep([int(x) for x in names("--engine-seeds")],
+                     repeats=int(sys.argv[sys.argv.index("--repeats") + 1]) if "--repeats" in sys.argv else 2,
+                     scene=sys.argv[sys.argv.index("--scene") + 1] if "--scene" in sys.argv else "3d",
+                     swap=names("--swap"), only=names("--only"), audit="--audit" in sys.argv)
         print(smi, flush=True)
         return 0
     if "--long-seeds" in sys.argv:
@@ -5393,6 +6112,23 @@ def main() -> int:
             return 1
         print(smi, flush=True)
         return 0
+    if "--only-matrix" in sys.argv:
+        import shutil
+
+        shutil.rmtree(MATRIX_DIR, ignore_errors=True)
+        os.makedirs(MATRIX_DIR)
+        try:
+            matrix_check([matrix_part(part, smi) for part in MATRIX_PARTS], smi)
+        except AssertionError as e:
+            emit({"phase": "matrix", "failed": str(e)})
+            print(smi, flush=True)
+            return 1
+        print(smi, flush=True)
+        return 0
+    if "--deterministic-witness" in sys.argv:
+        deterministic_witness(smi)
+        print(smi, flush=True)
+        return 0
     if "--only-ba" in sys.argv:
         torch.use_deterministic_algorithms(True, warn_only=True)
         _, (F, P, O) = long_map_global_optimize(smi, production_engine(long_run=True).tracker.backend)
@@ -5425,13 +6161,16 @@ def main() -> int:
     timed("frontend", frontend_phases, images, smi)
     timed("ba", ba_phase)
     launches = timed("engine", engine_phase, smi, on_failure={})
-    metric = start_metric_side()
+    metric = start_side("--metric-side", "metric", METRIC_DEADLINE_S)
+    matrix = start_matrix_sides()
     try:
         long_launches, long_shape = timed("long", long_phase, smi, on_failure=({}, BA_KERNEL_SHAPES[0]))
         extras_launches = timed("extras", extras_phase, smi, on_failure={})
     finally:
-        # "metric" is the wait for its process, which ran beside these two
+        # "metric" and "matrix" are the waits for their processes, which ran
+        # beside these two
         metric_launches = timed("metric", join_metric_side, metric, on_failure={})
+        matrix_launches = timed("matrix", join_matrix_sides, matrix, smi, on_failure={})
     multi_seq_launches = timed("multi_seq", multi_seq_phase, smi, on_failure={})
     # before phase 15, which compares with its solution
     point_reduce = timed("global_ba", global_ba_phase, smi, on_failure={}).get("point_reduce", 0)
@@ -5439,7 +6178,7 @@ def main() -> int:
     sequence_launches = timed("sequence", sequence_phase, smi, on_failure={})
     training_launches = timed("training", training_phase, smi, on_failure={})
     by_path = {"mono/3d": dict(launches), "mono/long": long_launches, **metric_launches, **extras_launches,
-               **multi_seq_launches, **mesh_launches, **sequence_launches, **training_launches}
+               **multi_seq_launches, **mesh_launches, **sequence_launches, **training_launches, **matrix_launches}
     rows.update(timed("ba_kernels", ba_kernels_phase, smi, (long_shape, BA_KERNEL_SHAPES[1]), on_failure={}))
     # the sorted kernel's launches are those of global_optimize's full BA;
     # the unsorted kernel runs only where "pallas" is asked for

@@ -162,7 +162,7 @@ def test_port_imports_no_jax():
         "        'runtime.extractor', 'ops.lie', 'ops.pnp', 'ops.pose_opt', 'ops.cuda_pose', 'ops.epipolar',\n"
         "        'ops.triangulation', 'ops.ba', 'ops.ransac', 'ops.linalg', 'utils.timing', 'utils.metrics',\n"
         "        'utils.tum_io', 'weights', 'dataset', 'native', 'cli.run_vo', 'cli.run_vo_multi',\n"
-        "        'cli.make_synthetic_dataset']\n"
+        "        'cli.make_synthetic_dataset', 'cli.bench_accuracy', 'cli.bench_scaling']\n"
         "missing = [n for n in need if 'ur_mvo_tpu_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "from ur_mvo_tpu_torch.engine import UR_MVO\n"

@@ -152,10 +152,12 @@ def _rank_main(workdir, rank, world):
     out["ba"] = {}
     for name, (fields, geom) in inp["ba"].items():
         prob_s, perm = shard_problem(ba_problem_from_numpy(fields), world)
+        before = dict(tmesh.ALL_SUM)
         res = dist_bundle_adjust(prob_s, mesh, *geom)
         X = torch.empty_like(res.X).index_put_((torch.from_numpy(perm),), res.X)
         out["ba"][name] = {"R": res.R_wc.numpy(), "t": res.t_wc.numpy(), "X": X.numpy(),
-                           "inliers": int(res.obs_inlier.sum()), "cost": float(res.cost)}
+                           "inliers": int(res.obs_inlier.sum()), "cost": float(res.cost),
+                           "all_sum": tuple(tmesh.ALL_SUM[k] - before.get(k, 0) for k in ("calls", "bytes"))}
 
     sg = SuperGlue.from_state_dict(superglue_from_numpy(inp["sg"])).eval()
     match = make_batched_matcher(sg, mesh, 640, 512, sinkhorn_iterations=20, threshold=0.1)
@@ -476,6 +478,30 @@ def test_dist_bundle_adjust_world2(world2, name):
         assert np.abs(got["R"][:6] - ref["R_true"]).max() < 1e-2
         assert np.abs(got["t"][:6] - ref["t_true"]).max() < 5e-2
         assert ref["n_obs"] - 45 <= got["inliers"] <= ref["n_obs"] - 35
+
+
+def test_dist_bundle_adjust_all_reduce_count_world2(world2):
+    """``parallel.mesh.all_sum`` counts what ``dist_bundle_adjust`` sums, on
+    both ranks and both problems: each LM step one ``all_reduce`` of the
+    packed reduced camera system (``H_cc`` (FF, 6, 6), ``b_c`` (FF, 6),
+    ``S_red`` (6FF, 6FF), ``b_red`` (6FF), float32) and one of the trial
+    cost, each LM phase one more for its starting cost; at FF = 16 a step's
+    bytes are the JAX source's 39,940 (``scripts/validate_ici_model.py``)
+    in 2 calls where it makes 5. ``cli.bench_scaling.packed_terms`` works
+    out the same."""
+    from ur_mvo_tpu_torch.cli.bench_scaling import packed_terms
+
+    ranks, _ = world2
+    cfg = BAConfig()
+    FF, steps = cfg.max_free_frames, cfg.iters_phase1 + cfg.iters_phase2
+    step_bytes = 4 * (FF * 6 * 6 + FF * 6 + (6 * FF) * (6 * FF) + 6 * FF) + 4
+    assert FF == 16 and step_bytes == 39940
+    want = (2 * steps + 2, steps * step_bytes + 2 * 4)
+    for r in ranks:
+        for name in ("key0", "key3_outliers"):
+            assert r["ba"][name]["all_sum"] == want, (r["rank"], name)
+    terms = packed_terms(cfg)
+    assert (terms["calls"], terms["bytes"], terms["bytes_a_step"], terms["calls_a_step"]) == (*want, step_bytes, 2)
 
 
 def test_batched_matcher_world2(world2):

@@ -37,6 +37,7 @@ from ur_mvo_tpu_torch.weights import superglue_from_numpy
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SP_V3 = os.path.join(REPO, "weights", "superpoint_scratch_v3.npz")
 SG_CKPT = os.path.join(REPO, "weights", "superglue_v3scene.npz")
+SG_STEREO = os.path.join(REPO, "weights", "superglue_v4stereo.npz")
 
 
 def _to_torch(bank) -> FeatureBank:
@@ -98,23 +99,22 @@ def test_sinkhorn_plain_matches_jax_and_pallas(M, N, m, n, alpha, iters):
 @pytest.fixture(scope="module")
 def shipped_banks():
     """Two capacity-256 banks of rendered 120x160 frames (the JAX extractor's
-    SuperPoint + selection) and the shipped matcher in both packages."""
+    SuperPoint + selection)."""
     images, _, _ = render_sequence(2, 120, 160, 130.0, seed=11)
     sp = JS.load_torch_weights(SP_V3)
     banks = []
     for im in images:
         s, d = JS.forward(sp, jnp.asarray(im.astype(np.float32) / 255.0)[None, :, :, None])
         banks.append(select_keypoints(s[0], d[0], capacity=256, threshold=1e-4, max_keypoints=200))
-    jp = JG.load_weights(SG_CKPT)
-    tg = SuperGlue.from_state_dict(load_weights(SG_CKPT)).eval()
-    return banks, jp, tg
+    return banks
 
 
-def test_superglue_match_scores_match_jax_on_shipped_weights(shipped_banks):
-    """float32, identical banks: Z agrees to 1e-3 on the valid entries and
-    the dustbins; ``decode_assignment`` gives the same ``idx1`` in >= 99% of
-    slots."""
-    banks, jp, tg = shipped_banks
+def _match_scores_hold_to_jax(banks, ckpt):
+    """The shipped matcher ``ckpt`` in both packages on the same banks,
+    float32: Z agrees to 1e-3 on the valid entries and the dustbins;
+    ``decode_assignment`` gives the same ``idx1`` in >= 99% of slots."""
+    jp = JG.load_weights(ckpt)
+    tg = SuperGlue.from_state_dict(load_weights(ckpt)).eval()
     Zj = np.asarray(jax.jit(lambda p, a, b: JG.match_scores(p, a, b, 160, 120))(jp, *banks))
     with torch.no_grad():
         Zt = tg.match_scores(_to_torch(banks[0]), _to_torch(banks[1]), 160, 120).numpy()
@@ -126,6 +126,20 @@ def test_superglue_match_scores_match_jax_on_shipped_weights(shipped_banks):
                               torch.from_numpy(np.array(banks[1].valid)), 0.2)
     assert int(mt.num_valid()) > 20
     assert (mt.idx1.numpy() == np.asarray(mj.idx1)).mean() >= 0.99
+
+
+def test_superglue_match_scores_match_jax_on_shipped_weights(shipped_banks):
+    """float32, identical banks: Z agrees to 1e-3 on the valid entries and
+    the dustbins; ``decode_assignment`` gives the same ``idx1`` in >= 99% of
+    slots."""
+    _match_scores_hold_to_jax(shipped_banks, SG_CKPT)
+
+
+def test_superglue_match_scores_match_jax_on_shipped_stereo_weights(shipped_banks):
+    """The shipped stereo checkpoint (``superglue_v4stereo.npz``, the
+    ``--sg-weights`` opt-in for a distorted right lens) carried across at
+    the mono checkpoint's limits, on the same banks."""
+    _match_scores_hold_to_jax(shipped_banks, SG_STEREO)
 
 
 def test_superglue_weights_round_trip_reproduces_jax():

@@ -15,7 +15,9 @@ Usage:
       [--setup mono|stereo|rgbd] [--gt gt.txt|images.txt]
       [--results out_dir] [--stride 5] [--device cuda|cpu] [--chunk N]
 
-``--device`` defaults to ``cuda`` and raises without it.
+``--device`` defaults to ``cuda`` and raises without it. On CUDA the run
+takes PyTorch's deterministic algorithms (``warn_only``), so that two runs
+write the same bytes; the caller's setting is restored on return.
 """
 
 from __future__ import annotations
@@ -81,6 +83,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "existing map via retrieval + PnP (Backend.relocalize)")
     args = ap.parse_args(argv)
 
+    from ur_mvo_tpu_torch.device import deterministic_on, resolve_device
+
+    # on CUDA the run takes deterministic algorithms, which the gated card
+    # runs read; the caller's setting comes back on return
+    with deterministic_on(resolve_device(args.device)):
+        return _run(args)
+
+
+def _run(args) -> dict:
     import numpy as np
     import torch
 

@@ -14,7 +14,8 @@ sequence with its ATE are written.
 All sequences must share image size and calibration (the first
 sequence's ``camera.yaml`` is used). Processing runs to the shortest
 sequence's length (lock-step batching). ``--device`` defaults to ``cuda``
-and raises without it.
+and raises without it; on CUDA the run takes PyTorch's deterministic
+algorithms, the caller's setting restored on return.
 """
 
 from __future__ import annotations
@@ -41,6 +42,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--stride", type=int, default=5)
     args = ap.parse_args(argv)
 
+    from ur_mvo_tpu_torch.device import deterministic_on, resolve_device
+
+    # on CUDA the run takes deterministic algorithms, which the gated card
+    # runs read; the caller's setting comes back on return
+    with deterministic_on(resolve_device(args.device)):
+        return _run(args)
+
+
+def _run(args) -> None:
     import numpy as np
     import torch
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -26,3 +27,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def compute_dtype(name: str) -> torch.dtype:
     """``RuntimeConfig.compute_dtype`` string -> torch dtype."""
     return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+@contextlib.contextmanager
+def deterministic_on(device: torch.device):
+    """PyTorch's deterministic algorithms (``warn_only``) for the span of a
+    command-line run on a CUDA ``device``; the caller's setting comes back
+    on exit, also on an exception. On CUDA the window BA's ``index_add_``
+    adds with atomics, and two runs would not share their bits without it;
+    the card's gated runs read this setting. Any other device is left as
+    it is. The library API sets no process-wide state: only the CLIs take
+    this."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)

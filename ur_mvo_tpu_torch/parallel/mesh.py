@@ -19,6 +19,7 @@ gloo. Without NCCL a CUDA mesh raises rather than move to gloo or the CPU.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 from typing import Optional
@@ -37,6 +38,12 @@ DEFAULT_TIMEOUT_S = 60.0
 # the device init_distributed chose, with the world it chose it for: a
 # world joined otherwise (torchrun and init_process_group) has none
 _joined: Optional[tuple] = None
+
+# what :func:`all_sum` sent through ``all_reduce`` in this process:
+# ``"calls"`` and ``"bytes"`` (the packed buffer's), counted as
+# ``ops/cuda_ext.LAUNCHES`` counts kernel launches; ``cli.bench_scaling``
+# reads them a LM step
+ALL_SUM: "collections.Counter[str]" = collections.Counter()
 
 
 def rank_device(device: DeviceLike = None) -> torch.device:
@@ -177,6 +184,8 @@ def all_sum(tensors, mesh: DeviceMesh):
     into one buffer, summed, split back to their shapes."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=mesh.get_group())
+    ALL_SUM["calls"] += 1
+    ALL_SUM["bytes"] += flat.numel() * flat.element_size()
     out, i = [], 0
     for t in tensors:
         out.append(flat[i : i + t.numel()].reshape(t.shape))
