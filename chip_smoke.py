@@ -92,7 +92,12 @@ layers, bf16 compute. Phases, each printing one JSON line:
    (``pose_gn`` at least once per tracked frame; its mean GN steps per
    problem are printed). Host ms per stage and per
    frame, the device's busy and idle share of a run, and the same sequences
-   through the plain versions on the card, held to the same gate. The checked
+   through the plain versions on the card, held to the same gate, each
+   seed's initialisation frame, frames lost (those against a collapsed
+   map, a reference keyframe with fewer than 6 triangulated points, counted
+   apart as phases 14 and 18 count them) and poses emitted printed beside
+   the kernel run's (printed, not held: the plain runs' losses are
+   reference behaviour, ROADMAP C2). The checked
    runs go under PyTorch's deterministic ``index_add_`` so that they repeat;
    the timed runs do not. Relocalizations are reported per run;
 9. long: the ``mono/long`` protocol of ``scripts/bench_accuracy.py --long``
@@ -122,9 +127,9 @@ layers, bf16 compute. Phases, each printing one JSON line:
    (24 frames at 240x320, fx 260, seeds 11-13; stereo renders a right image
    0.12 m to the right, bf = fx x 0.12; RGB-D reads the rendered metric
    depth) on the kernels and on the plain versions, and ``rgbd/long`` (its
-   long configuration, 120 frames at 480x640) on the kernels. The RGB-D
-   BAs sum the point side of bf16 summands, as the JAX package's window
-   route does (``BAConfig.bf16_point_side``). Per run the
+   long configuration, 120 frames at 480x640) on the kernels. The stereo
+   and RGB-D BAs sum the point side of bf16 summands, as the JAX package's
+   window route does (``BAConfig.bf16_point_side``). Per run the
    init that fired (``_init_stereo`` / ``_init_rgbd``, as it must be),
    keyframes, frames lost, relocalizations, the ATE without scale
    correction, the pose-GN problems of the tracking steps with their mean
@@ -403,8 +408,8 @@ scenes), a per-frame trace a lane.
 ``--metric-seeds rgbd/long 11,12,...,20 [--plain] [--float32-point-side]``
 runs one metric protocol on those scenes through phase 10's code, printing
 each run's ATE (the spread behind its 3-seed gate) and the gate over all of
-them; ``--float32-point-side`` sums the RGB-D BAs' point side of exact
-float32 summands, as the monocular and stereo setups do.
+them; ``--float32-point-side`` sums the stereo and RGB-D BAs' point side
+of exact float32 summands, as the monocular setup does.
 ``--ptxas`` prints registers and shared memory per kernel.
 """
 
@@ -2072,8 +2077,8 @@ def metric_engine(protocol, kernels=True, device="cuda", float32_point_side=Fals
     """``UR_MVO`` for a metric protocol with ``metric_config``, and for
     stereo a camera whose bf is fx times the baseline. ``float32_point_side``
     swaps in a backend whose BAs sum the point side of exact float32
-    summands, as the monocular and stereo setups' do, where the RGB-D
-    setup's round them to bf16 (a measurement, ``--metric-seeds``)."""
+    summands, as the monocular setup's do, where the stereo and RGB-D
+    setups' round them to bf16 (a measurement, ``--metric-seeds``)."""
     from ur_mvo_tpu_torch.camera import make_pinhole
     from ur_mvo_tpu_torch.config import SensorSetup
     from ur_mvo_tpu_torch.engine import UR_MVO
@@ -2250,8 +2255,8 @@ def metric_seeds(protocol, seeds, kernels=True, float32_point_side=False):
     """One metric protocol over more scene seeds than its gate's three
     (``--metric-seeds``), under deterministic algorithms: the seed-to-seed
     spread a 3-seed gate has to stand. ``float32_point_side`` gives the
-    RGB-D BAs the exact float32 point side of the monocular and stereo
-    setups in place of the JAX package's bf16 one."""
+    stereo and RGB-D BAs the exact float32 point side of the monocular
+    setup in place of the JAX package's bf16 one."""
     import torch
 
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2867,6 +2872,33 @@ def engine_scene(seed, scene="3d"):
     return [Frame(image=Image(images[i], i / FPS)) for i in range(ENGINE_FRAMES)], T_wc
 
 
+def collapsed_counted(run, vo, *a, **k):
+    """``(run(vo, ...), n)``: ``n`` the frames the run lost while its
+    reference keyframe held fewer than ``MULTI_SEQ_COLLAPSED`` triangulated
+    points (a collapsed map: ROADMAP C11, C17), as phase 14 counts them."""
+    tr, n = vo.tracker, [0]
+    process = tr.process
+
+    def traced(*pa, **pk):
+        cand, lost = reference_candidates(tr), tr.frames_lost
+        out = process(*pa, **pk)
+        n[0] += tr.frames_lost > lost and cand is not None and cand < MULTI_SEQ_COLLAPSED
+        return out
+
+    tr.process = traced
+    try:
+        return run(vo, *a, **k), n[0]
+    finally:
+        del tr.process
+
+
+def engine_run_counted(vo, seed, scene=None):
+    """``engine_run`` with ``frames_lost_collapsed`` in its row."""
+    out, n = collapsed_counted(engine_run, vo, seed, scene)
+    out[0]["frames_lost_collapsed"] = n
+    return out
+
+
 def engine_run(vo, seed, scene=None):
     """Reset the engine, feed it one scene, and score the run."""
     frames, T_wc = scene or engine_scene(seed)
@@ -3166,7 +3198,7 @@ def engine_phase(smi):
     # --- the main path, with launch counts -------------------------------
     cuda_ext.LAUNCHES.clear()
     cuda_pose.reset_steps()
-    runs = [engine_run(vo, seed, scenes[seed]) for seed in ENGINE_SEEDS]
+    runs = [engine_run_counted(vo, seed, scenes[seed]) for seed in ENGINE_SEEDS]
     launches = dict(cuda_ext.LAUNCHES)
     gn_steps, gn_problems = cuda_pose.steps_run()
     rows = [r[0] for r in runs]
@@ -3219,8 +3251,13 @@ def engine_phase(smi):
     # --- the same sequences through the plain versions on the card --------
     plain = production_engine(kernels=False)
     cuda_ext.LAUNCHES.clear()
-    plain_runs = [engine_run(plain, s, scenes[s]) for s in ENGINE_SEEDS]
+    plain_runs = [engine_run_counted(plain, s, scenes[s]) for s in ENGINE_SEEDS]
     plain_launches = dict(cuda_ext.LAUNCHES)
+    emit({"phase": "engine_plain", "check": "health beside the kernels' (ROADMAP C2)", "seeds": [
+        {"seed": s, **{side: {k: r[0][k] for k in ("initialised_at_frame", "frames_lost", "frames_lost_collapsed",
+                                                   "poses_emitted", "keyframes", "ate")}
+                       for side, r in (("kernels", k_run), ("plain", p_run))}}
+        for s, k_run, p_run in zip(ENGINE_SEEDS, runs, plain_runs)], "card": smi})
     emit({"phase": "engine_plain", "runs": [r[0] for r in plain_runs], "kernel_launches": plain_launches,
           "ms_per_frame_median": statistics.median(ms for r in plain_runs for ms in r[1]),
           "mean_ate": {"kernels": mean_ate, "plain": statistics.mean(r[0]["ate"] or float("nan") for r in plain_runs)},
@@ -5663,21 +5700,9 @@ def collapsed_losses(bench_accuracy, counts):
     run_sequence = bench_accuracy.run_sequence
 
     def counted(vo, *a, **k):
-        tr, n = vo.tracker, [0]
-        process = tr.process
-
-        def traced(*pa, **pk):
-            cand, lost = reference_candidates(tr), tr.frames_lost
-            out = process(*pa, **pk)
-            n[0] += tr.frames_lost > lost and cand is not None and cand < MULTI_SEQ_COLLAPSED
-            return out
-
-        tr.process = traced
-        try:
-            return run_sequence(vo, *a, **k)
-        finally:
-            del tr.process
-            counts.append(n[0])
+        out, n = collapsed_counted(run_sequence, vo, *a, **k)
+        counts.append(n)
+        return out
 
     bench_accuracy.run_sequence = counted
     return lambda: setattr(bench_accuracy, "run_sequence", run_sequence)

@@ -7,9 +7,9 @@ depth seeds new map points and enters no residual. A window BA whose only
 fixed keyframe is the first (``frame id <= 2``) then has a free scale, and
 an LM step moves along it by what rounding leaves in the gradient there,
 over the damping alone. The JAX package sums the point side of bf16
-summands (its one-hot matmul); the port's RGB-D BAs do the same
-(``BAConfig.bf16_point_side``), its monocular and stereo BAs sum exact
-float32 summands.
+summands (its one-hot matmul); the port's RGB-D and stereo BAs do the
+same (``BAConfig.bf16_point_side``), its monocular BAs sum exact float32
+summands.
 
 Run from the root of the repository (JAX on the CPU, the port's plain
 versions on the CPU):

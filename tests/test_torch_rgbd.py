@@ -232,13 +232,14 @@ def test_rgbd_engine_with_oracle_matches_jax():
 
 @pytest.mark.parametrize("setup", ["MONO", "STEREO", "RGBD"])
 def test_rgbd_sums_the_point_side_as_jax_does(setup):
-    """The RGB-D engine's BAs (keyframe window, loop and relocalization
-    refinement, and the full BA, which takes the window's) round the point
-    side's summands to bf16 as the JAX package's window route does
-    (``test_torch_ba.py`` holds the terms to it); the monocular and stereo
-    engines' sum exact float32 summands."""
+    """The RGB-D and stereo engines' BAs (keyframe window, loop and
+    relocalization refinement, and the full BA, which takes the window's)
+    round the point side's summands to bf16 as the JAX package's window
+    route does (``test_torch_ba.py`` holds the terms to it; the stereo
+    engine's window on a captured problem: ``test_torch_lockstep.py``); the
+    monocular engine's sum exact float32 summands (ROADMAP C7)."""
     _, tcam = _cams()
     oracle = OracleExtractor(np.zeros((4, 3), np.float32), tcam, capacity=16, device="cpu")
     backend = UR_MVO(tconfig.Configs(), tconfig.SensorSetup[setup], camera=tcam, extractor=oracle,
                      device="cpu").tracker.backend
-    assert backend._ba_cfg.bf16_point_side == backend._refine_cfg.bf16_point_side == (setup == "RGBD")
+    assert backend._ba_cfg.bf16_point_side == backend._refine_cfg.bf16_point_side == (setup != "MONO")

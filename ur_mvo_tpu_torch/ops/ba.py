@@ -30,7 +30,7 @@ The frame side (``H_cc``, ``b_c``) stays exact float32 on every route.
 ``BAConfig.bf16_point_side`` rounds the ``"scatter"`` route's point-side
 summands to bf16 before its float32 sums: the JAX package's window
 numerics (its one-hot matmul, ``ur_mvo_tpu/ops/ba.py:278-284``), which
-the RGB-D setup takes (``runtime/backend.py``).
+the stereo and RGB-D setups take (``runtime/backend.py``).
 
 The LM loop runs its fixed number of iterations with every update masked
 once the phase has converged (the JAX ``while_loop`` stops there; the

@@ -48,10 +48,13 @@ class Backend:
     holds the parts of ``global_optimize``; ``last_full_ba`` the size and
     assembly of the last full BA. ``bf16_point_side``: every BA rounds its
     point side's summands to bf16 (``BAConfig.bf16_point_side``), the JAX
-    package's window numerics. The tracker asks for it in the RGB-D setup:
-    its keyframes hold mono rows, so a window with one fixed keyframe
-    leaves the scale free, and with exact float32 summands the RGB-D runs
-    drift along it more than the JAX package's do."""
+    package's window numerics. The tracker asks for it in the stereo and
+    RGB-D setups. In RGB-D the keyframes hold mono rows, so a window with
+    one fixed keyframe leaves the scale free, and with exact float32
+    summands the RGB-D runs drifted along it more than the JAX package's
+    do. In stereo the exact summands gave another window solution than the
+    JAX package's on the same problem (the bf16 summands give its bits);
+    the monocular setup still sums exact float32 summands (ROADMAP C7)."""
 
     def __init__(
         self,

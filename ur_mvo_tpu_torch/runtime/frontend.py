@@ -216,7 +216,7 @@ class Tracker:
         self.backend = backend or Backend(
             camera, cfg.backend, cfg.backend_optimization,
             keypoints_per_frame=cfg.superpoint.capacity, device=self.device, kernels=kernels,
-            bf16_point_side=cfg.sensor_setup == SensorSetup.RGBD,
+            bf16_point_side=cfg.sensor_setup in (SensorSetup.STEREO, SensorSetup.RGBD),
         )
         self.K_mat = torch.as_tensor(np.asarray(camera.intrinsic_matrix(), np.float32), device=self.device)
         self._plain = not kernels
